@@ -4,9 +4,13 @@ The JAX package ``ka9q_sdr_tpu`` is the reference; this package mirrors its
 layout and public names so each counterpart sits under the same path:
 
 - ``ops``      — overlap-save filter engine (``torch.fft``), Kaiser design,
-                 fixed-point NCO, and the FM blanking forward fill with its
-                 hand-written Hopper kernel (``csrc/ffill.cu``).
-- ``models``   — the FM demodulator and the FM(+PL) channel bank.
+                 fixed-point NCO, one-pole scans, half-band decimators, and
+                 three hand-written Hopper kernels with plain versions: the
+                 FM blanking forward fill (``csrc/ffill.cu``), the hang AGC
+                 (``csrc/agc.cu``) and the column Stockham FFT
+                 (``csrc/pstock.cu``).
+- ``models``   — the FM, AM and linear (SSB/CW/IQ/ISB/CAM PLL)
+                 demodulators and the channel bank with its live control.
 - ``interop``  — carries state between the two packages as numpy trees.
 
 It imports torch and numpy and never jax.  No function chooses a device by

@@ -1,11 +1,13 @@
 """Carry bank/demod/oscillator state between the JAX package and the port.
 
 The bank has no weights; what the two implementations share is state.  The
-JAX package's state is a tree of NamedTuples (BankState, FMState, OscState);
-map it to numpy leaves (``jax.tree_util.tree_map(np.asarray, state)``) and
-``state_from_jax`` builds the port's tree of the same names on a device.
-``state_to_numpy`` goes back.  The uint32 phase/frequency words become int64
-in the port and uint32 again on the way back; complex64 stays complex64.
+JAX package's state is a tree of NamedTuples (BankState, FMState, AMState,
+LinearState, AGCState, OscState), plain tuples (the PLL's half-band cascade
+states) and None (absent rings); map it to numpy leaves
+(``jax.tree_util.tree_map(np.asarray, state)``) and ``state_from_jax``
+builds the port's tree of the same names on a device.  ``state_to_numpy``
+goes back.  The uint32 phase/frequency words become int64 in the port and
+uint32 again on the way back; complex64 stays complex64.
 """
 
 from __future__ import annotations
@@ -14,12 +16,16 @@ import numpy as np
 import torch
 
 from .models.bank import BankState
+from .models.demod_am import AMState
 from .models.demod_fm import FMState
+from .models.demod_linear import LinearState
+from .ops.agc import AGCState
 from .ops.nco import OscState
 
 __all__ = ["state_from_jax", "state_to_numpy"]
 
-_PORT = {cls.__name__: cls for cls in (BankState, FMState, OscState)}
+_PORT = {cls.__name__: cls for cls in (BankState, FMState, AMState,
+                                       LinearState, AGCState, OscState)}
 _U32_FIELDS = {("OscState", "phase"), ("OscState", "freq")}
 
 
@@ -34,6 +40,8 @@ def state_from_jax(tree, *, device):
     if _is_namedtuple(tree):
         cls = _PORT[type(tree).__name__]
         return cls(*(state_from_jax(x, device=device) for x in tree))
+    if isinstance(tree, tuple):
+        return tuple(state_from_jax(x, device=device) for x in tree)
     a = np.asarray(tree)
     if a.dtype == np.uint32:
         a = a.astype(np.int64)
@@ -52,4 +60,6 @@ def state_to_numpy(state):
             if (name, field) in _U32_FIELDS else state_to_numpy(x)
             for field, x in zip(state._fields, state)
         ))
+    if isinstance(state, tuple):
+        return tuple(state_to_numpy(x) for x in state)
     return state.detach().cpu().numpy()

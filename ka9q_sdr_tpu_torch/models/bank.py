@@ -1,32 +1,33 @@
-"""Wideband multichannel bank on torch tensors: the FM(+PL) path.
+"""Wideband multichannel bank on torch tensors, every mode of the table.
 
 Port of ``ka9q_sdr_tpu.models.bank``: ONE wideband forward FFT per block,
 then for every channel a bin gather (frequency conversion done in the
 frequency domain), the shared frequency response, the exact integer block
 phase, a batched short IFFT, a residual fine-tune NCO at the decimated rate,
-and the batched FM demodulator.  See the JAX module's docstring for the
-frequency-conversion algebra; the port computes the same math.
+and the batched demodulator of the bank's mode (FM, AM or linear).  See the
+JAX module's docstring for the frequency-conversion algebra; the port
+computes the same math.  Live control (retune, Doppler steer, demod-row
+reset, filter swap) edits the state between blocks.
 
 What differs from the JAX package, by design:
 
 - The per-channel window gather is the plain one, ``fdomain[(base_idx + k)
   % N]``.  The JAX package's aligned 128-bin chunk-row gather with its
   shifted-response table exists because the TPU has no fast dynamic gather.
+  ISB banks combine the sidebands from that gather (``_isb_combine``).
 - Block-phase residues are computed in int64, where ``(s * c) % N`` is exact;
   the JAX package's int32 limb arithmetic (``_mul_mod_n``) only avoided
   int32 overflow.
 - State keeps complex tensors: there is no real-dtype packing boundary.
-- Only the FM demodulator is ported so far; other modes raise.
 """
 
 from __future__ import annotations
 
+from dataclasses import replace as dc_replace
 from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
-
-from ka9q_sdr_tpu.utils.modes import DEFAULT_MODES, ModeDef
 
 from ..ops.fftfilt import (
     FilterType,
@@ -37,7 +38,10 @@ from ..ops.fftfilt import (
     slave_bin_indices,
 )
 from ..ops.nco import OscState, osc_block, osc_init, set_osc, split_double
+from ..utils.modes import DEFAULT_MODES, ModeDef
+from .demod_am import AMConfig, am_demod, am_init
 from .demod_fm import FMConfig, fm_demod, fm_init
+from .demod_linear import LinearConfig, linear_demod, linear_init
 
 __all__ = [
     "BankConfig",
@@ -51,6 +55,10 @@ __all__ = [
     "bank_channelize",
     "bank_demod",
     "bank_recenter",
+    "bank_tune",
+    "bank_set_doppler",
+    "bank_reset_demod_row",
+    "swap_filter_response",
 ]
 
 _TWO32 = float(2**32)
@@ -68,7 +76,7 @@ class BankConfig(NamedTuple):
     n_channels: int
     response: np.ndarray     # shared (N_dec,) channel frequency response
     base_idx: object         # (N_dec,) master-bin gather pattern at k=0
-    demod_cfg: FMConfig
+    demod_cfg: object        # FMConfig, AMConfig or LinearConfig
     kaiser_beta: float = 3.0
 
     @property
@@ -104,8 +112,15 @@ class BankState(NamedTuple):
     r: torch.Tensor         # (B,) int32, per-channel block-phase residue mod N
     dr: torch.Tensor        # (B,) int32, per-block residue step (k*L mod N)
     nco: OscState           # batched (B,) residual fine-tune oscillators
-    demod: object           # batched demod state (FMState)
+    demod: object           # batched demod state (FM-, AM- or LinearState)
     gain_factor: torch.Tensor  # float32 scalar
+
+
+def _out_type(mode: ModeDef) -> FilterType:
+    """CROSS_CONJ for the ISB modes (filter.c:239-249), else COMPLEX."""
+    if mode.demod == "LINEAR" and mode.isb:
+        return FilterType.CROSS_CONJ
+    return FilterType.COMPLEX
 
 
 def make_bank_config(
@@ -120,18 +135,13 @@ def make_bank_config(
 ) -> BankConfig:
     if isinstance(mode, str):
         mode = DEFAULT_MODES[mode.upper()]
-    if mode.demod != "FM":
-        raise NotImplementedError(
-            f"{mode.name}: only FM banks are ported so far; AM is ROADMAP "
-            "§1 item 11, linear/CAM/ISB item 12"
-        )
     master = MasterSpec(L, M, FilterType.COMPLEX)
     N = master.N
     # Channel geometry mirrors the reference receiver: 48 kHz output.
     decimate = round(samprate / 48000.0)
     if N % decimate:
         raise ValueError(f"N={N} not divisible by decimate={decimate}")
-    slave = SlaveSpec(master, decimate, FilterType.COMPLEX)
+    slave = SlaveSpec(master, decimate, _out_type(mode))
     dsamprate = samprate / decimate
     response = set_filter_response(
         slave, mode.low / dsamprate, mode.high / dsamprate, kaiser_beta
@@ -139,11 +149,24 @@ def make_bank_config(
     base_idx = slave_bin_indices(slave).astype(np.int32)
     L_dec = L // decimate
     M_dec = (M - 1) // decimate + 1
-    demod_cfg = FMConfig.make(
-        dsamprate, mode.low, mode.high, L_dec, M_dec,
-        headroom_db=headroom_db, kaiser_beta=kaiser_beta,
-        flat=mode.flat, enable_pl=enable_pl and not mode.flat,
-    )
+    if mode.demod == "FM":
+        demod_cfg = FMConfig.make(
+            dsamprate, mode.low, mode.high, L_dec, M_dec,
+            headroom_db=headroom_db, kaiser_beta=kaiser_beta,
+            flat=mode.flat, enable_pl=enable_pl and not mode.flat,
+        )
+    elif mode.demod == "AM":
+        demod_cfg = AMConfig.make(
+            dsamprate, headroom_db=headroom_db,
+            recovery_rate_db_s=mode.recovery_rate, hangtime_s=mode.hangtime,
+        )
+    else:
+        demod_cfg = LinearConfig.make(
+            dsamprate, L_dec, headroom_db=headroom_db,
+            recovery_rate_db_s=mode.recovery_rate, hangtime_s=mode.hangtime,
+            pll=mode.pll, square=mode.square, channels=mode.channels,
+            shift_freq=mode.shift / dsamprate,
+        )
     return BankConfig(
         samprate=float(samprate),
         master=master,
@@ -207,6 +230,13 @@ def bank_init(cfg: BankConfig, freqs_hz: Sequence[float], *,
     def i32(a):
         return torch.as_tensor(a.astype(np.int32), device=device)
 
+    if cfg.mode.demod == "FM":
+        dstate = fm_init(cfg.demod_cfg, (B,), device=device)
+    elif cfg.mode.demod == "AM":
+        dstate = am_init((B,), device=device)
+    else:
+        dstate = linear_init(cfg.demod_cfg, (B,), device=device)
+
     return BankState(
         overlap=torch.zeros((cfg.master.M - 1,), dtype=torch.complex64,
                             device=device),
@@ -216,7 +246,7 @@ def bank_init(cfg: BankConfig, freqs_hz: Sequence[float], *,
         r=i32(r0),
         dr=i32(dr0),
         nco=nco,
-        demod=fm_init(cfg.demod_cfg, (B,), device=device),
+        demod=dstate,
         gain_factor=torch.ones((), dtype=torch.float32, device=device),
     )
 
@@ -273,13 +303,48 @@ def bank_channelize(
                            device=fdomain.device)
     idx = (base[None, :] + state.k[:, None]) % N
     f_fd = fdomain[idx] * state.resp[None, :] * phi[:, None]
+    if _out_type(cfg.mode) is FilterType.CROSS_CONJ:
+        return new_r, new_nco, _isb_combine(f_fd, lo, N_dec, L_dec)
     y = torch.fft.ifft(f_fd, dim=-1) * N_dec
     return new_r, new_nco, y[..., N_dec - L_dec:] * lo
 
 
+def _isb_combine(f_fd: torch.Tensor, lo: torch.Tensor, N_dec: int,
+                 L_dec: int) -> torch.Tensor:
+    """CROSS_CONJ ISB combine from a slave-order spectrum.
+
+    The reference mixes the full LO before its FFT, so its cross-conjugate
+    combine (filter.c:239-249, pairing slave bins p = 1..h-1 with N_dec-p
+    and leaving 0 and h unpaired) sees the residual-shifted sidebands; conj
+    does not commute with that shift.  So the sidebands are transformed
+    apart, each mixed with the residual LO, and combined after:
+    out = base + 2j*Im(USB') + 2*Re(LSB'), base = the unpaired DC/Nyquist
+    bins."""
+    h = N_dec // 2
+    f_pos = f_fd.clone()
+    f_pos[..., h + 1:] = 0
+    f_neg = f_fd.clone()
+    f_neg[..., : h + 1] = 0
+    u = torch.fft.ifft(f_pos, dim=-1)[..., N_dec - L_dec:] * N_dec
+    l_ = torch.fft.ifft(f_neg, dim=-1)[..., N_dec - L_dec:] * N_dec
+    n_out = np.arange(N_dec - L_dec, N_dec)
+    sign = torch.as_tensor(((-1.0) ** n_out).astype(np.float32),
+                           device=f_fd.device)
+    base = f_fd[..., 0:1] + f_fd[..., h: h + 1] * sign[None, :]
+    u = (u - base) * lo
+    l_ = l_ * lo
+    base = base * lo
+    return base + torch.complex(2.0 * l_.real, 2.0 * u.imag)
+
+
 def bank_demod(cfg: BankConfig, dstate, baseband: torch.Tensor):
-    """The batched demodulator for this bank's mode (FM only so far)."""
-    return fm_demod(cfg.demod_cfg, dstate, baseband)
+    """Dispatch the batched demodulator for this bank's mode (the
+    Demodtab[] of modes.c:25-30)."""
+    if cfg.mode.demod == "FM":
+        return fm_demod(cfg.demod_cfg, dstate, baseband)
+    if cfg.mode.demod == "AM":
+        return am_demod(cfg.demod_cfg, dstate, baseband)
+    return linear_demod(cfg.demod_cfg, dstate, baseband)
 
 
 def bank_step(
@@ -323,9 +388,10 @@ def bank_step_active(
     """bank_step_i16 with device-side active-channel compaction (the
     reference's silence suppression, audio.c:102-113).
 
-    Returns (state, pcm_i16 (max_active, L_dec), idx (max_active,) int32,
-    diag): the top-max_active channels by audio peak as int16 PCM;
-    idx[i] = -1 marks an unused slot (channel silent)."""
+    Returns (state, pcm_i16 (max_active, L_dec) (stereo modes: (max_active,
+    2*L_dec), each row its channel's (L_dec, 2) audio flattened),
+    idx (max_active,) int32, diag): the top-max_active channels by audio
+    peak as int16 PCM; idx[i] = -1 marks an unused slot (channel silent)."""
     state, audio, diag = bank_step_i16(cfg, state, x_i16)
     flat = audio.reshape(audio.shape[0], -1)
     peak = torch.amax(torch.abs(flat), dim=-1)
@@ -335,6 +401,180 @@ def bank_step_active(
     active = torch.amax(torch.abs(pcm), dim=-1) > 0
     idx = torch.where(active, idx, torch.full_like(idx, -1))
     return state, pcm, idx.to(torch.int32), diag
+
+
+def _set_ch(t: torch.Tensor, channel: int, val) -> torch.Tensor:
+    """A copy of `t` with row `channel` set to `val` (a number or a tensor
+    on t's device; nothing is fetched to the host)."""
+    out = t.clone()
+    out[channel] = val
+    return out
+
+
+def _cycles_per_sample(nco: OscState, channel: int) -> torch.Tensor:
+    """The live NCO frequency of one channel in cycles/sample, float32, as
+    the JAX package reads it (the word bitcast to int32, plus the
+    residual)."""
+    f = nco.freq[channel]
+    fw = torch.where(f >= 2**31, f - 2**32, f)
+    return fw.to(torch.float32) * float(np.float32(1.0 / _TWO32)) \
+        + nco.freq_resid[channel]
+
+
+def bank_tune(cfg: BankConfig, state: BankState, channel: int,
+              freq_hz: float, old_freq_hz: float | None = None) -> BankState:
+    """Retune one channel without phase discontinuity (osc.c:24-27): the
+    residue r keeps its phase, only k, dr and the residual NCO frequency
+    change, plus the group-delay phase correction for the delta change.
+
+    The continuity terms come from the channel's LIVE k and NCO frequency
+    (a Doppler sweep may have hopped k since the last command), read on the
+    device with no host fetch.  `old_freq_hz` is accepted for the JAX
+    package's signature and ignored.  The sweep rate is left as it is."""
+    del old_freq_hz
+    if not np.isfinite(freq_hz) or abs(freq_hz) > cfg.samprate / 2:
+        raise ValueError(
+            f"retune to {freq_hz!r} Hz outside the +-{cfg.samprate / 2:.0f} "
+            f"Hz span of a {cfg.samprate:.0f} S/s bank")
+    N = cfg.N
+    nu = freq_hz / cfg.samprate
+    k = int(np.round(nu * N))
+    delta = nu - k / N
+    hi, resid = split_double(-delta * cfg.decimate)
+    km = k % N
+    nco = state.nco
+    # dcorr = (fq_old - fq_new) * (M-1) / (2 * decimate) cycles, mod 1
+    fq_new = float(np.float32(-delta * cfg.decimate))
+    dcorr = (_cycles_per_sample(nco, channel) - fq_new) * float(
+        np.float32((cfg.master.M - 1) / 2.0 / cfg.decimate))
+    dcorr = dcorr - torch.round(dcorr)
+    new_nco = nco._replace(
+        freq=_set_ch(nco.freq, channel, hi),
+        freq_resid=_set_ch(nco.freq_resid, channel, float(np.float32(resid))),
+        phase_resid=_set_ch(nco.phase_resid, channel,
+                            nco.phase_resid[channel] + dcorr),
+    )
+    # r carries a -k*(M-1) alignment term (bank_init's r_0): switching k by
+    # s needs r -= s*(M-1) mod N, or the block phase jumps (bank_recenter)
+    s_k = km - state.k[channel].to(torch.int64)
+    r_adj = (s_k % N) * ((cfg.master.M - 1) % N) % N
+    r_ch = (state.r[channel].to(torch.int64) - r_adj) % N
+    return state._replace(
+        k=_set_ch(state.k, channel, km),
+        dr=_set_ch(state.dr, channel, km * cfg.master.L % N),
+        r=_set_ch(state.r, channel, r_ch.to(torch.int32)),
+        nco=new_nco,
+    )
+
+
+def bank_set_doppler(cfg: BankConfig, state: BankState, channel: int,
+                     base_freq_hz: float, doppler_hz: float = 0.0,
+                     rate_hz_s: float = 0.0) -> BankState:
+    """Doppler-steer one channel (radio.c:180-198, doppler.c:63-66): set
+    its instantaneous frequency to base + doppler and its sweep rate,
+    phase-continuously, without rewriting k (``bank_recenter`` hops k as
+    the sweep drifts).
+
+    The new residual frequency is relative to the channel's live k, the
+    group-delay phase correction relative to its live NCO frequency, both
+    read on the device.  The steer targets f(t - delay): the residual NCO
+    runs after the filter's (M-1)/2-sample group delay."""
+    doppler_hz = doppler_hz - rate_hz_s * (cfg.master.M - 1) / (
+        2.0 * cfg.samprate)
+    f_total = base_freq_hz + doppler_hz
+    if not np.isfinite(f_total) or not np.isfinite(rate_hz_s) or \
+            abs(f_total) > cfg.samprate / 2:
+        raise ValueError(
+            f"doppler steer to {f_total!r} Hz (rate {rate_hz_s!r} Hz/s) "
+            f"outside the +-{cfg.samprate / 2:.0f} Hz span")
+    N, N_dec = cfg.N, cfg.N_dec
+    dsr = cfg.dsamprate
+    # target position in master bins, split exactly on the host
+    b = np.float64(f_total) / cfg.samprate * N
+    b_int = int(np.round(b))
+    b_frac = float(b - b_int)
+    # signed wrapped distance from the channel's current k
+    d = (b_int % N - state.k[channel].to(torch.int64)) % N
+    d = torch.where(d > N // 2, d - N, d)
+    excess = d.to(torch.float32) + float(np.float32(b_frac))  # bins above k
+    fq_new = -excess * float(np.float32(1.0 / N_dec))  # cycles/dec-sample
+    nco = state.nco
+    dcorr = (_cycles_per_sample(nco, channel) - fq_new) * float(
+        np.float32((cfg.master.M - 1) / 2.0 / cfg.decimate))
+    dcorr = dcorr - torch.round(dcorr)
+    rate_dec = -rate_hz_s / (dsr * dsr)        # cycles/dec-sample^2
+    new_nco = nco._replace(
+        freq=_set_ch(nco.freq, channel, 0),
+        freq_resid=_set_ch(nco.freq_resid, channel, fq_new),
+        rate=_set_ch(nco.rate, channel, float(np.float32(rate_dec))),
+        phase_resid=_set_ch(nco.phase_resid, channel,
+                            nco.phase_resid[channel] + dcorr),
+    )
+    return state._replace(nco=new_nco)
+
+
+def _map_leaves(fn, live, fresh):
+    """Apply fn to matching leaves of two state trees (NamedTuples, tuples,
+    None)."""
+    if live is None:
+        return None
+    if isinstance(live, tuple):
+        out = [_map_leaves(fn, a, b) for a, b in zip(live, fresh)]
+        return type(live)(*out) if hasattr(live, "_fields") else tuple(out)
+    return fn(live, fresh)
+
+
+def bank_reset_demod_row(state: BankState, fresh_demod, channel: int,
+                         n_channels: int) -> BankState:
+    """Reset ONE channel's demod state row to its freshly initialised value
+    (the reference's demod-thread respawn on a mode or preset change,
+    radio.c:322-374, as a state edit).
+
+    `fresh_demod` is a ``bank_init`` demod subtree of the same structure.
+    Leaves whose leading axis is the channel axis get row `channel` from
+    it; shared leaves are left as they are."""
+
+    def splice(live, tmpl):
+        if live.ndim >= 1 and live.shape[0] == n_channels \
+                and tmpl.shape == live.shape:
+            return _set_ch(live, channel, tmpl[channel].to(live.device))
+        return live
+
+    return state._replace(demod=_map_leaves(splice, state.demod,
+                                            fresh_demod))
+
+
+def swap_filter_response(cfg: BankConfig, state: BankState,
+                         low: float | None = None, high: float | None = None,
+                         kaiser_beta: float | None = None):
+    """Hot-swap the bank's shared frequency response (set_filter,
+    filter.c:500-546): edges in Hz at the decimated rate.  The response is
+    a state tensor, so the next block uses it.  Returns (cfg, state)."""
+    mode = cfg.mode
+    low = mode.low if low is None else low
+    high = mode.high if high is None else high
+    beta = cfg.kaiser_beta if kaiser_beta is None else kaiser_beta
+    # np.i0 overflows for beta beyond ~226 and would NaN every channel's
+    # shared response without raising; reference betas are 0..20
+    if not np.isfinite(beta) or not 0.0 <= beta <= 100.0:
+        raise ValueError(f"kaiser_beta out of range: {beta!r}")
+    if not (np.isfinite(low) and np.isfinite(high)):
+        raise ValueError(f"non-finite filter edges: {low!r}, {high!r}")
+    slave = SlaveSpec(cfg.master, cfg.decimate, _out_type(mode))
+    dsr = cfg.dsamprate
+    resp = set_filter_response(slave, low / dsr, high / dsr, beta)
+    demod_cfg = cfg.demod_cfg
+    if mode.demod == "FM" and high != low and mode.high != mode.low:
+        # fm.c recomputes the audio gain from the current edges every block
+        # (fm.c:85-86): gain scales as 1/|high - low|
+        demod_cfg = demod_cfg._replace(
+            gain=float(demod_cfg.gain * abs(mode.high - mode.low)
+                       / abs(high - low)))
+    cfg = cfg._replace(mode=dc_replace(mode, low=low, high=high),
+                       response=resp, kaiser_beta=beta, demod_cfg=demod_cfg)
+    leaf = torch.as_tensor(resp, dtype=torch.complex64,
+                           device=state.resp.device)
+    return cfg, state._replace(resp=leaf)
 
 
 class ChannelBank:
@@ -385,3 +625,43 @@ class ChannelBank:
         self.state, pcm, idx, diag = bank_step_active(
             self.cfg, self.state, self._put(x_i16, torch.int16), max_active)
         return pcm, idx, diag
+
+    def tune(self, channel: int, freq_hz: float) -> None:
+        """Retune one channel without phase discontinuity (radio.c:204-242
+        set_freq at bank scale; see bank_tune)."""
+        # device state first: if it rejects the frequency, the host list
+        # must not desync from it
+        self.state = bank_tune(self.cfg, self.state, channel, freq_hz)
+        self.freqs[channel] = freq_hz
+
+    def set_filter(self, low: float | None = None, high: float | None = None,
+                   kaiser_beta: float | None = None) -> None:
+        """Hot-swap the bank's shared frequency response
+        (swap_filter_response)."""
+        self.cfg, self.state = swap_filter_response(
+            self.cfg, self.state, low=low, high=high, kaiser_beta=kaiser_beta)
+
+    def set_doppler(self, channel: int, doppler_hz: float,
+                    rate_hz_s: float) -> None:
+        """Doppler-steer one channel (set_doppler, radio.c:180-198): offset
+        and sweep rate on top of its base frequency (self.freqs, which
+        retunes keep current)."""
+        self.state = bank_set_doppler(
+            self.cfg, self.state, channel, self.freqs[channel],
+            doppler_hz=doppler_hz, rate_hz_s=rate_hz_s)
+
+    def steer_adapter(self, channel: int):
+        """A per-channel facade with the Receiver steering interface
+        (.tune_freq / .set_doppler), so a Doppler steerer can drive one
+        bank channel like a reference `radio -d` instance."""
+        bank = self
+
+        class _Chan:
+            @property
+            def tune_freq(self):
+                return bank.freqs[channel]
+
+            def set_doppler(self, f, r):
+                bank.set_doppler(channel, f, r)
+
+        return _Chan()

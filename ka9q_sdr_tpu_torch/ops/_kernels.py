@@ -18,7 +18,7 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
-__all__ = ["KernelLibrary", "load"]
+__all__ = ["KernelLibrary", "load", "load_all"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -51,26 +51,38 @@ def _nvcc() -> str:
 def load(name: str) -> KernelLibrary:
     """Return the loaded library for ``csrc/<name>.cu``, building it first
     if no build of the current source exists."""
-    if name in _loaded:
-        return _loaded[name]
-    src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return load_all([name])[name]
+
+
+def load_all(names) -> dict[str, KernelLibrary]:
+    """Load several kernel libraries; the missing builds run as concurrent
+    ``nvcc`` processes, one per source."""
+    todo = {}
+    for name in names:
+        if name in _loaded:
+            continue
+        src = _CSRC / f"{name}.cu"
+        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        todo[name] = (src, BUILD_DIR / f"lib{name}-{digest}.so")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"lib{name}-{digest}.so"
-    cached = so.exists()
-    seconds, log = 0.0, ""
-    if not cached:
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True,
-        )
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
+    procs = {}
+    t0 = time.perf_counter()
+    for name, (src, so) in todo.items():
+        if not so.exists():
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            procs[name] = (tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = {}
+    for name, (tmp, proc) in procs.items():   # wait for every build
+        logs[name] = (proc.communicate()[0], time.perf_counter() - t0)
+    for name, (tmp, proc) in procs.items():
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{log}")
-        os.replace(tmp, so)
-    kl = KernelLibrary(ctypes.CDLL(str(so)), so, seconds, cached, log)
-    _loaded[name] = kl
-    return kl
+            raise RuntimeError(f"nvcc failed on {todo[name][0]}:\n"
+                               f"{logs[name][0]}")
+        os.replace(tmp, todo[name][1])
+    for name, (src, so) in todo.items():
+        log, seconds = logs.get(name, ("", 0.0))
+        _loaded[name] = KernelLibrary(ctypes.CDLL(str(so)), so, seconds,
+                                      name not in procs, log)
+    return {name: _loaded[name] for name in names}

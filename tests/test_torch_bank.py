@@ -218,8 +218,3 @@ def test_scan_and_complex_ingest_match_per_block():
         audio, _ = c.process(iq.astype(np.complex64))
         ref, _ = d.process_i16(x)
         assert torch.equal(audio, ref)
-
-
-def test_non_fm_modes_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TB.make_bank_config(4, "USB", samprate=FS, L=LW, M=M)

@@ -1,6 +1,8 @@
 """The port must import and run where jax is not installed (the machine
-with the card has none): import every port module and run two blocks of a
-tiny FM+PL bank on the CPU in a subprocess where ``import jax`` fails."""
+with the card has none) and without the JAX package: import every port
+module and run two blocks of a tiny bank of each demodulator family, a live
+retune and a column FFT on the CPU in a subprocess where ``import jax`` and
+``import ka9q_sdr_tpu`` fail."""
 
 import subprocess
 import sys
@@ -10,22 +12,34 @@ _SCRIPT = r"""
 import sys
 sys.modules["jax"] = None          # any "import jax" now raises ImportError
 sys.modules["jaxlib"] = None
+sys.modules["ka9q_sdr_tpu"] = None  # ... and so does the JAX package
 import numpy as np
 import torch
 import ka9q_sdr_tpu_torch
 from ka9q_sdr_tpu_torch import interop
+from ka9q_sdr_tpu_torch.models import demod_am, demod_fm, demod_linear
 from ka9q_sdr_tpu_torch.models.bank import ChannelBank, make_bank_config
-from ka9q_sdr_tpu_torch.ops import _kernels, ffill
+from ka9q_sdr_tpu_torch.ops import (_kernels, agc, decimate, ffill, iir,
+                                    pstock)
 
 fs, L = 1.536e6, 30720
-cfg = make_bank_config(2, "FM", samprate=fs, L=L, M=34817, enable_pl=True)
-bank = ChannelBank(cfg, [-2e5, 3e5], device="cpu")
 x = np.zeros((L, 2), np.int16)
-for _ in range(2):
-    pcm, diag = bank.process_i16_pcm(x)
-assert pcm.shape == (2, 960) and pcm.dtype == torch.int16
-assert ffill.launches == 0
-assert not any(m.split(".")[0] in ("jax", "jaxlib")
+for mode, shape in (("FM", (2, 960)), ("AM", (2, 960)), ("CAM", (2, 960)),
+                    ("ISB", (2, 960, 2))):
+    cfg = make_bank_config(2, mode, samprate=fs, L=L, M=34817,
+                           enable_pl=True)
+    bank = ChannelBank(cfg, [-2e5, 3e5], device="cpu")
+    for _ in range(2):
+        pcm, diag = bank.process_i16_pcm(x)
+    bank.tune(1, 2.5e5)
+    bank.set_doppler(0, 10.0, 5.0)
+    bank.set_filter(-3000.0, 3000.0)
+    assert pcm.shape == shape and pcm.dtype == torch.int16, mode
+    interop.state_to_numpy(bank.state)
+yr, yi = pstock.make_fft_cols(8, 4, 4)(torch.ones(8, 4), torch.zeros(8, 4))
+assert float(yr[0, 0]) == 8.0
+assert ffill.launches == agc.launches == pstock.launches == 0
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "ka9q_sdr_tpu")
                for m, mod in sys.modules.items() if mod is not None)
 print("ok")
 """

@@ -10,7 +10,10 @@ Tolerances, with their reasons:
   compute in float32 with different FFT libraries (pocketfft in torch,
   ducc in XLA), which round differently at the ~1e-7 relative level;
 - complex LO samples: atol 1e-6 — cos/sin of bit-identical phases, from
-  two libm implementations (float32 ulp is 6e-8 near 1).
+  two libm implementations (float32 ulp is 6e-8 near 1);
+- the column Stockham FFT: relative error < 2e-6 of the spectrum's peak
+  against np.fft and the JAX interpret-mode kernel (the JAX test's bound);
+  the float64 recurrence within 1e-12.
 """
 
 import numpy as np
@@ -31,6 +34,7 @@ from ka9q_sdr_tpu.ops.ffill import (
 from ka9q_sdr_tpu_torch.ops import fftfilt as TF
 from ka9q_sdr_tpu_torch.ops import ffill as TFF
 from ka9q_sdr_tpu_torch.ops import nco as TN
+from ka9q_sdr_tpu_torch.ops import pstock as TP
 from ka9q_sdr_tpu_torch.ops import window as TW
 
 torch.set_num_threads(1)
@@ -228,3 +232,64 @@ def test_forward_fill_scalar_init_and_batch_dims():
                                               0.25))
     got = TFF.forward_fill(torch.as_tensor(v), torch.as_tensor(m), 0.25)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---------------------------------------------------------------- pstock
+
+@pytest.mark.parametrize("Q,W", [(1, 3), (16, 3), (1024, 3), (64, 5)])
+def test_stockham_rows_matches_numpy(Q, W):
+    from ka9q_sdr_tpu.ops.pstock import stockham_rows_np
+
+    rng = np.random.default_rng(Q)
+    x = rng.standard_normal((Q, W)) + 1j * rng.standard_normal((Q, W))
+    got = TP.stockham_rows(torch.as_tensor(x)).numpy()
+    np.testing.assert_allclose(got, stockham_rows_np(x), rtol=0, atol=1e-12)
+    want = np.fft.fft(x, axis=0)
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-12
+
+
+def _rel(got, want):
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+@pytest.mark.parametrize("Q,P,CW", [(256, 512, 128), (64, 96, 32),
+                                    (2, 8, 8)])
+def test_fft_cols_plain_matches_numpy_and_interpret(Q, P, CW):
+    from ka9q_sdr_tpu.ops.pstock import make_fft_cols as j_make_fft_cols
+
+    rng = np.random.default_rng(P)
+    x = (rng.standard_normal((Q, P))
+         + 1j * rng.standard_normal((Q, P))).astype(np.complex64)
+    xr, xi = np.ascontiguousarray(x.real), np.ascontiguousarray(x.imag)
+    yr, yi = TP.make_fft_cols(Q, P, CW)(torch.as_tensor(xr),
+                                        torch.as_tensor(xi))
+    got = yr.numpy() + 1j * yi.numpy()
+    assert _rel(got, np.fft.fft(x.astype(np.complex128), axis=0)) < 2e-6
+    jr, ji = j_make_fft_cols(Q, P, CW, interpret=True)(jnp.asarray(xr),
+                                                       jnp.asarray(xi))
+    assert _rel(got, np.asarray(jr) + 1j * np.asarray(ji)) < 2e-6
+    assert TP.launches == 0
+
+
+@pytest.mark.parametrize("args", [(100, 8, 8), (64, 100, 32), (0, 8, 8),
+                                  (32768, 8, 8)])
+def test_make_fft_cols_rejects_bad_geometry(args):
+    with pytest.raises(ValueError):
+        TP.make_fft_cols(*args)
+
+
+# ---------------------------------------------------------------- modes
+
+def test_mode_table_matches_jax_package():
+    import dataclasses
+
+    from ka9q_sdr_tpu.utils import modes as JM
+    from ka9q_sdr_tpu_torch.utils import modes as TM
+
+    assert list(TM.DEFAULT_MODES) == list(JM.DEFAULT_MODES)
+    for name, mode in JM.DEFAULT_MODES.items():
+        assert dataclasses.astuple(TM.DEFAULT_MODES[name]) == \
+            dataclasses.astuple(mode)
+    text = "X  AM -1 +2 3 -4 5 0.5 mono square\nbad line\nY fm 9 1 0 0 0 0 flat"
+    assert [dataclasses.astuple(m) for m in TM.parse_modes(text).values()] \
+        == [dataclasses.astuple(m) for m in JM.parse_modes(text).values()]
