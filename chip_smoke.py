@@ -21,9 +21,17 @@ drives the channel bank through its user entry points:
   and a 64-channel card-against-CPU comparison;
 - AM, USB and ISB banks at 256 channels with the serving geometry per
   channel, and live control on a CAM bank: a retune that re-acquires, a
-  Doppler sweep that stays locked across k hops, a narrower filter.
+  Doppler sweep that stays locked across k hops, a narrower filter;
+- the mixed-mode MultiBank at bench's two mixed rows (FM + USB + CAM
+  groups off one master FFT): squelch, 1 kHz audio, CAM acquisition to the
+  exact bin, and a small MultiBank card against CPU;
+- the single receiver at the reference ``radio`` defaults (192 kHz) in FM,
+  AM, USB, LSB and CAM, fed numpy FM or the port's test modulator on the
+  card, card against CPU, with mid-stream retune, filter and mode edits;
+  the receiver behind a 24.576 Msps front end; and a 10 s offline replay.
 
-Times come from CUDA events.  Phases print their findings line by line.
+Times come from CUDA events and torch.profiler.  Phases print their
+findings line by line.
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Any failed check makes the exit code 1
 and suppresses both JSON lines; no CUDA device means exit code 2.
@@ -59,6 +67,18 @@ PLL_BIN = 48000.0 / 65536          # the acquisition FFT's bin, Hz
 CAM_SIGNAL = {7: 37, 1000: -56, 2047: 17, 3333: 90}
 #: Other modes: 256 channels at 24.576 Msps, N = 2^20, decimate 512
 OTHER = dict(n_channels=256, samprate=24.576e6, L=491520, M=557057)
+#: bench.py's mixed MultiBank rows (bench.py:358-360), serving geometry;
+#: 60 blocks pass the CAM group's first acquisition (block 35)
+MIXED_ROWS = ((("FM", 3072), ("USB", 512), ("CAM", 512)),
+              (("FM", 5120), ("USB", 512), ("CAM", 512)))
+MIXED_BLOCKS = 60
+#: signal channels per group of the first mixed row: FM carriers (no PL),
+#: USB tones 1 kHz up, CAM carriers (PLL bins off) with 1 kHz AM
+MIXED_FM_SIG, MIXED_USB_SIG = (5, 700, 1500, 3000), (10, 300)
+MIXED_CAM_SIG = {7: 37, 400: -56}
+#: receiver blocks per mode at 192 kHz (20 ms each); CAM passes its first
+#: acquisition at block 35
+RX_BLOCKS = {"FM": 25, "AM": 25, "USB": 25, "LSB": 25, "CAM": 80}
 
 
 def check(cond, what):
@@ -113,45 +133,50 @@ def bank_freqs(n):
     return list(np.linspace(-usable / 2, usable / 2, n, endpoint=False))
 
 
-def make_block(b, L, freqs, signal, no_pl, dev):
-    """Block b of the wideband int16 I/Q stream, made on the device from
-    the seed: complex noise plus FM carriers at the `signal` channels
-    (1 kHz audio at 3 kHz deviation, a 100 Hz PL tone at 500 Hz deviation
-    except on `no_pl`)."""
-    g = torch.Generator(device=dev).manual_seed(SEED + b)
+def make_iq(b, L, fs, seed, fm=(), carriers=(), dev=None):
+    """Block b of a wideband int16 I/Q stream, made on the device from the
+    seed: complex noise plus FM carriers `fm`, (freq Hz, with_pl), with
+    1 kHz audio at 3 kHz deviation and, when with_pl, a 100 Hz PL tone at
+    500 Hz deviation; and carriers `carriers`, (freq Hz, am, sweep), with
+    am = 1 kHz AM at depth 0.5 and sweep = None or (start sample, Hz/s): a
+    linear chirp from that sample on."""
+    dev = DEV if dev is None else dev
+    g = torch.Generator(device=dev).manual_seed(seed + b)
     n = b * L + torch.arange(L, device=dev, dtype=torch.float64)
     x = 0.03 * torch.randn((L, 2), generator=g, device=dev,
                            dtype=torch.float32).to(torch.float64)
-    audio = 3.0 * torch.sin(2 * np.pi * torch.frac(n * (1000.0 / FS)))
-    pl = 5.0 * torch.sin(2 * np.pi * torch.frac(n * (100.0 / FS)))
-    for ch in signal:
-        cyc = torch.frac(n * (freqs[ch] / FS))
-        ph = 2 * np.pi * cyc + audio + (0.0 if ch in no_pl else pl)
-        x[:, 0] += 0.05 * torch.cos(ph)
-        x[:, 1] += 0.05 * torch.sin(ph)
+    if fm:
+        audio = 3.0 * torch.sin(2 * np.pi * torch.frac(n * (1000.0 / fs)))
+        pl = 5.0 * torch.sin(2 * np.pi * torch.frac(n * (100.0 / fs)))
+        for f, with_pl in fm:
+            cyc = torch.frac(n * (f / fs))
+            ph = 2 * np.pi * cyc + audio + (pl if with_pl else 0.0)
+            x[:, 0] += 0.05 * torch.cos(ph)
+            x[:, 1] += 0.05 * torch.sin(ph)
+    if carriers:
+        env = 1.0 + 0.5 * torch.sin(2 * np.pi * torch.frac(n * (1000.0 / fs)))
+        for f, am, sweep in carriers:
+            cyc = torch.frac(n * (f / fs))
+            if sweep is not None:
+                dt = torch.clamp_min(n - sweep[0], 0.0) / fs
+                cyc = cyc + torch.frac(0.5 * sweep[1] * dt * dt)
+            ph = 2 * np.pi * cyc
+            a = 0.05 * env if am else 0.05
+            x[:, 0] += a * torch.cos(ph)
+            x[:, 1] += a * torch.sin(ph)
     return torch.clamp(x * 32767.0, -32768, 32767).to(torch.int16)
+
+
+def make_block(b, L, freqs, signal, no_pl, dev):
+    """Block b of the FM bank's input: FM carriers at the `signal`
+    channels, with a PL tone except on `no_pl`."""
+    return make_iq(b, L, FS, SEED, fm=[(freqs[ch], ch not in no_pl)
+                                       for ch in signal], dev=dev)
 
 
 def make_am_block(b, L, fs, carriers, dev):
-    """Block b of a wideband int16 I/Q stream made on the device from the
-    seed: complex noise plus carriers.  carriers: (freq Hz, am, sweep) with
-    am = 1 kHz AM at depth 0.5, and sweep = None or (start sample, Hz/s):
-    a linear chirp from that sample on."""
-    g = torch.Generator(device=dev).manual_seed(SEED + 7 + b)
-    n = b * L + torch.arange(L, device=dev, dtype=torch.float64)
-    x = 0.03 * torch.randn((L, 2), generator=g, device=dev,
-                           dtype=torch.float32).to(torch.float64)
-    env = 1.0 + 0.5 * torch.sin(2 * np.pi * torch.frac(n * (1000.0 / fs)))
-    for f, am, sweep in carriers:
-        cyc = torch.frac(n * (f / fs))
-        if sweep is not None:
-            dt = torch.clamp_min(n - sweep[0], 0.0) / fs
-            cyc = cyc + torch.frac(0.5 * sweep[1] * dt * dt)
-        ph = 2 * np.pi * cyc
-        a = 0.05 * env if am else 0.05
-        x[:, 0] += a * torch.cos(ph)
-        x[:, 1] += a * torch.sin(ph)
-    return torch.clamp(x * 32767.0, -32768, 32767).to(torch.int16)
+    """Block b of an AM/linear bank's input: `carriers` (see make_iq)."""
+    return make_iq(b, L, fs, SEED + 7, carriers=carriers, dev=dev)
 
 
 def tone_hz(pcm_rows, rate=48000.0):
@@ -727,25 +752,334 @@ def phase_live_control(bank_mod):
           f"audio at {f:.1f} Hz")
 
 
-def time_bank(bank, L, signal, label, iters, smi):
-    """Per-block device time on a device-resident input, after warm-up."""
-    x = make_block(0, L, bank.freqs, signal, (), DEV)
-    bank.process_i16_pcm(x)
+def time_step(step, n_ch, L, fs, label, iters, smi):
+    """Per-block device time of step() on a device-resident input, after
+    a warm-up: CUDA events for the block, torch.profiler for the kernels'
+    busy time and the device's idle share."""
+    step()
     torch.cuda.reset_peak_memory_stats()
     t_host = time.perf_counter()
-    ms = cuda_ms(lambda: bank.process_i16_pcm(x), iters)
+    ms = cuda_ms(step, iters)
     t_host = (time.perf_counter() - t_host) / (iters + 1) * 1e3
     peak = torch.cuda.max_memory_allocated() / 2**30
-    busy = device_ms(lambda: bank.process_i16_pcm(x), 3)
-    n_ch = bank.cfg.n_channels
+    busy = device_ms(step, 3)
     rate = n_ch * L / (ms / 1e3) / 1e6
-    realtime = (L / FS) / (ms / 1e3)
+    realtime = (L / fs) / (ms / 1e3)
     print(f"  {label}: {ms:.3f} ms/block on the device ({t_host:.3f} ms host "
-          f"wall incl. sync), {rate:,.0f} ch x Msps, {realtime:.2f}x "
+          f"wall incl. sync), {rate:,.{0 if rate >= 100 else 3}f} ch x Msps, "
+          f"{realtime:.2f}x "
           f"realtime, peak {peak:.1f} GiB; kernels busy {busy:.3f} ms/block "
           f"(profiler), device idle {max(0.0, 1 - busy / ms):.0%} [{smi}]",
           flush=True)
+    return ms, rate, busy
+
+
+def time_bank(bank, L, signal, label, iters, smi):
+    """time_step of a ChannelBank's int16-in, PCM-out block."""
+    x = make_block(0, L, bank.freqs, signal, (), DEV)
+    ms, rate, _ = time_step(lambda: bank.process_i16_pcm(x),
+                            bank.cfg.n_channels, L, FS, label, iters, smi)
     return ms, rate
+
+
+def _mixed_groups(spec):
+    """bench.py's mixed-row layout: every channel of every group on one
+    grid over the usable 90% of the band, the groups in order."""
+    total = sum(n for _, n in spec)
+    grid = bank_freqs(total)
+    groups, i = [], 0
+    for mode, n in spec:
+        groups.append((mode, grid[i:i + n]))
+        i += n
+    return groups
+
+
+def phase_multibank(bank_mod, ffill, agc, smi):
+    """bench's mixed rows: FM + USB + CAM groups off ONE master FFT at
+    393.216 Msps, 20 ms blocks."""
+    print("phase 13: MultiBank " + " + ".join(f"{m}:{n}" for m, n in
+                                              MIXED_ROWS[0])
+          + f", {SERVE['L'] / FS * 1e3:.0f} ms blocks", flush=True)
+    groups = _mixed_groups(MIXED_ROWS[0])
+    fm_f, usb_f, cam_f = (f for _, f in groups)
+    fm_sig, usb_sig, cam_sig = MIXED_FM_SIG, MIXED_USB_SIG, MIXED_CAM_SIG
+    fm = [(fm_f[c], False) for c in fm_sig]
+    carriers = ([(usb_f[c] + 1000.0, False, None) for c in usb_sig]
+                + [(cam_f[c] + o * PLL_BIN, True, None)
+                   for c, o in cam_sig.items()])
+    mb = bank_mod.MultiBank(groups, samprate=FS, L=SERVE["L"], M=SERVE["M"],
+                            device=DEV)
+    check([c.N_dec for c in mb.cfgs] == [2048] * 3
+          and all(s.overlap is mb.states[0].overlap for s in mb.states),
+          "three groups, N_dec 2048 each, one overlap tensor shared")
+    n_blocks = MIXED_BLOCKS
+    pcm = {0: [], 1: [], 2: []}
+    sq = None
+    ffill.launches = agc.launches = 0
+    t0 = time.perf_counter()
+    for b in range(n_blocks):
+        x = make_iq(b, SERVE["L"], FS, SEED + 11, fm=fm, carriers=carriers)
+        outs = mb.process_i16_pcm(x)
+        pcm[0].append(outs[0][0][list(fm_sig)].cpu().numpy())
+        pcm[1].append(outs[1][0][list(usb_sig)].cpu().numpy())
+        pcm[2].append(outs[2][0][list(cam_sig)].cpu().numpy())
+        sq = outs[0][1]["squelch_open"]
+    torch.cuda.synchronize()
+    launches = (ffill.launches, agc.launches)
+    print(f"  {n_blocks} blocks in {time.perf_counter() - t0:.1f} s (signal "
+          "generation included)", flush=True)
+    check(launches == (2 * n_blocks, 2 * n_blocks),
+          f"ffill launches {launches[0]} == 2 per block (FM group), agc "
+          f"launches {launches[1]} == 2 per block (USB and CAM groups)")
+    sq = sq.cpu().numpy()
+    noise = [c for c in range(len(fm_f)) if c not in fm_sig]
+    check(bool(sq[list(fm_sig)].all()) and not sq[noise].any(),
+          f"FM group: squelch open on the {len(fm_sig)} signal channels, "
+          f"closed on all {len(noise)} others")
+    for g, sig, want in ((0, fm_sig, 1000.0), (1, usb_sig, 1000.0),
+                         (2, list(cam_sig), 1000.0)):
+        for i, c in enumerate(sig):
+            f = tone_hz(np.concatenate([p[i] for p in pcm[g][-15:]]))
+            check(abs(f - want) < 5.0, f"group {g} ({groups[g][0]}) ch {c}: "
+                  f"audio peak at {f:.1f} Hz")
+    df = mb.states[2].demod.delta_f.cpu().numpy()
+    for c, o in cam_sig.items():
+        check(round(float(df[c]) / PLL_BIN) == o,
+              f"CAM ch {c}: acquired at {df[c]:.3f} Hz = bin "
+              f"{df[c] / PLL_BIN:.2f}, carrier in bin {o}")
+    check(all(_bank_state_finite(s) for s in mb.states[1:]),
+          "USB and CAM group states finite")
+    del mb
+    for spec in MIXED_ROWS:
+        groups = _mixed_groups(spec)
+        mb = bank_mod.MultiBank(groups, samprate=FS, L=SERVE["L"],
+                                M=SERVE["M"], device=DEV)
+        x = make_iq(0, SERVE["L"], FS, SEED + 11,
+                    fm=[(groups[0][1][c], False) for c in fm_sig])
+        n_ch = sum(n for _, n in spec)
+        label = "MultiBank " + " + ".join(f"{m}:{n}" for m, n in spec)
+        time_step(lambda: mb.process_i16_pcm(x), n_ch, SERVE["L"], FS, label,
+                  20, smi)
+        del mb
+
+
+def phase_multibank_card_vs_cpu(bank_mod, interop):
+    """A small MultiBank (FM, USB and CAM, two channels each) at
+    1.536 Msps, same input, on the card and on the CPU."""
+    print("phase 14: MultiBank at 1.536 Msps on cuda against cpu",
+          flush=True)
+    fs, L, M = 1.536e6, 30720, 34817
+    grid = list(np.linspace(-0.45 * fs, 0.45 * fs, 6, endpoint=False))
+    groups = [("FM", grid[0:2]), ("USB", grid[2:4]), ("CAM", grid[4:6])]
+    fm = [(grid[1], False)]
+    carriers = [(grid[2] + 1000.0, False, None),
+                (grid[5] + 17 * PLL_BIN, True, None)]
+    gpu = bank_mod.MultiBank(groups, samprate=fs, L=L, M=M, device=DEV)
+    cpu = bank_mod.MultiBank(groups, samprate=fs, L=L, M=M, device="cpu")
+    worst = [0, 0, 0]
+    sq, count = [0.0] * 3, [0] * 3
+    for b in range(40):
+        x = make_iq(b, L, fs, SEED + 13, fm=fm, carriers=carriers)
+        og = gpu.process_i16_pcm(x)
+        oc = cpu.process_i16_pcm(x.cpu())
+        for g in range(3):
+            d = (og[g][0].cpu().numpy().astype(np.int64)
+                 - oc[g][0].numpy().astype(np.int64))
+            if b >= 1:
+                worst[g] = max(worst[g], int(np.abs(d).max()))
+                sq[g] += float((d.astype(np.float64) ** 2).sum())
+                count[g] += d.size
+    rms = [10 * np.log10(max(s / max(c, 1), 1e-30) / 32768.0 ** 2)
+           for s, c in zip(sq, count)]
+    check(worst[0] <= 1, f"FM group PCM within 1 LSB (worst {worst[0]})")
+    for g in (1, 2):
+        check(worst[g] <= 8 and rms[g] <= -85.0,
+              f"{groups[g][0]} group PCM from block 1: worst {worst[g]} LSB "
+              f"(<= 8), difference RMS {rms[g]:.1f} dBFS (<= -85)")
+    for g in range(3):
+        sg = interop.state_to_numpy(gpu.states[g])
+        sc = interop.state_to_numpy(cpu.states[g])
+        same = all(np.array_equal(getattr(sg, n), getattr(sc, n))
+                   for n in ("k", "r", "dr"))
+        same = same and all(np.array_equal(a, b)
+                            for a, b in zip(sg.nco, sc.nco))
+        if groups[g][0] == "CAM":
+            same = same and all(
+                np.array_equal(getattr(sg.demod, n), getattr(sc.demod, n))
+                for n in ("pll_lock", "lock_count", "fft_samples", "delta_f"))
+        check(same, f"{groups[g][0]} group: k/r/dr, NCO words"
+              f"{' and PLL state' if groups[g][0] == 'CAM' else ''} equal")
+
+
+def _pcm16(audio):
+    return np.clip(np.asarray(audio, np.float64) * 32767.0, -32768,
+                   32767).astype(np.int64)
+
+
+def _rx_source(mode, modulate, rx_if, fs, L):
+    """Block source for the receiver phase: numpy FM (1 kHz at 3 kHz
+    deviation) for FM, else the port's Modulator on the card with 1 kHz
+    audio (CAM: its AM preset, 37 PLL bins off the tuning)."""
+    if mode == "FM":
+        rng = np.random.default_rng(SEED)
+
+        def fm_block(b):
+            t = (b * L + np.arange(L)) / fs
+            x = 0.3 * np.exp(1j * (2 * np.pi * rx_if * t
+                                   + 3.0 * np.sin(2 * np.pi * 1000 * t)))
+            x = x + 0.003 * (rng.standard_normal(L)
+                             + 1j * rng.standard_normal(L))
+            return torch.as_tensor(x.astype(np.complex64), device=DEV)
+        return fm_block
+    preset = {"AM": "am", "USB": "usb", "LSB": "lsb", "CAM": "am"}[mode]
+    off = 37 * PLL_BIN if mode == "CAM" else 0.0
+    mod = modulate.Modulator(preset, frequency=rx_if + off, amplitude_db=-20.0,
+                             samprate=fs, device=DEV)
+    n = mod.L // 4
+
+    def mod_block(b):
+        k0 = b * (L // mod.L)
+        outs = []
+        for k in range(k0, k0 + L // mod.L):
+            t = (k * n + torch.arange(n, device=DEV, dtype=torch.float64)) \
+                / (fs / 4)
+            outs.append(mod.process(
+                (0.5 * torch.sin(2 * np.pi * 1000.0 * t)).to(torch.float32)))
+        return torch.cat(outs)
+    return mod_block
+
+
+def phase_receiver(receiver, modulate, ffill, agc, smi):
+    """The single receiver at the reference radio defaults, per mode, card
+    against CPU on the same input, then mid-stream control edits and the
+    card's time per block."""
+    print("phase 15: receiver at 192 kHz (L 3840, M 4353), per mode",
+          flush=True)
+    fs, rx_if = 192000, 48000.0
+    edits = {"FM": ((-7000.0, 7000.0), "AM"), "AM": ((-4000.0, 4000.0), "USB"),
+             "USB": ((200.0, 2800.0), "CWU"), "LSB": ((-2800.0, -200.0), "USB"),
+             "CAM": ((-4000.0, 4000.0), "USB")}
+    for mode, n_blocks in RX_BLOCKS.items():
+        gpu = receiver.make_receiver(mode, device=DEV)
+        cpu = receiver.make_receiver(mode, device="cpu")
+        cfg = gpu.cfg
+        check(all(rx.set_freq(rx_if) is None and rx.second_lo == -rx_if
+                  for rx in (gpu, cpu)), f"{mode}: LO2 absorbs the tuning")
+        source = _rx_source(mode, modulate, rx_if, fs, cfg.L)
+        blocks = [source(b) for b in range(n_blocks)]
+        torch.cuda.synchronize()
+        ffill.launches = agc.launches = 0
+        audio_g = [gpu.process(x)[0] for x in blocks]
+        torch.cuda.synchronize()
+        launches = ffill.launches if mode == "FM" else agc.launches
+        want = (2 if mode == "FM" else 1) * n_blocks
+        check(launches == want,
+              f"{mode}: {'ffill' if mode == 'FM' else 'agc'} launches "
+              f"{launches} == {want}")
+        audio_g = [_pcm16(a.cpu()) for a in audio_g]
+        audio_c = [_pcm16(cpu.process(x.cpu())[0]) for x in blocks]
+        worst = max(int(np.abs(g - c).max())
+                    for g, c in zip(audio_g[1:], audio_c[1:]))
+        worst0 = int(np.abs(audio_g[0] - audio_c[0]).max())
+        check(worst <= 1, f"{mode}: card against CPU within 1 LSB from block "
+              f"1 (worst {worst}; block 0 {worst0})")
+        f = tone_hz(np.concatenate(audio_g[-20:]))
+        check(abs(f - 1000.0) < 5.0, f"{mode}: audio peak at {f:.1f} Hz")
+        if mode == "CAM":
+            df = float(gpu.state.demod.delta_f)
+            check(round(df / PLL_BIN) == 37,
+                  f"CAM: acquired at {df:.3f} Hz = bin {df / PLL_BIN:.2f} "
+                  "(carrier in bin 37)")
+        (low, high), new_mode = edits[mode]
+        diffs, finite = [], True
+        b = n_blocks
+        for name, edit in (("set_freq", lambda rx: rx.set_freq(rx_if + 300.0)),
+                           ("set_filter", lambda rx: rx.set_filter(low, high)),
+                           ("set_mode", lambda rx: rx.set_mode(new_mode))):
+            for rx in (gpu, cpu):
+                edit(rx)
+            for _ in range(3):
+                x = source(b)
+                ag, dg = gpu.process(x)
+                ac, _ = cpu.process(x.cpu())
+                finite = finite and bool(torch.isfinite(ag).all()) and bool(
+                    torch.isfinite(dg["n0"]).all())
+                diffs.append(int(np.abs(_pcm16(ag.cpu()) - _pcm16(ac)).max()))
+                b += 1
+        check(finite, f"{mode}: set_freq, set_filter({low:.0f}, {high:.0f}) "
+              f"and set_mode({new_mode}) mid-stream: audio and n0 finite "
+              f"(card against CPU per block: {diffs} LSB)")
+        timed = receiver.make_receiver(mode, device=DEV)
+        timed.set_freq(rx_if)
+        time_step(lambda: timed.process(blocks[-1]), 1, cfg.L, fs,
+                  f"{mode} receiver, 192 kHz", 20, smi)
+
+
+def phase_receiver_wide(receiver, ffill, agc, smi):
+    """The receiver behind a 24.576 Msps front end: N = 2^20, decimate
+    512, 20 ms blocks."""
+    print("phase 16: receiver at 24.576 Msps (L 491520, M 557057)",
+          flush=True)
+    fs, L, f0 = 24576000, 491520, 3.0e6
+    for mode in ("FM", "USB"):
+        rx = receiver.make_receiver(mode, samprate=fs, L=L, M=557057,
+                                    device=DEV)
+        rx.set_freq(f0)
+        n = torch.arange(L, device=DEV, dtype=torch.float64)
+        pcm = []
+        ffill.launches = agc.launches = 0
+        for b in range(12):
+            t = (b * L + n) / fs
+            if mode == "FM":
+                ph = 2 * np.pi * torch.frac(t * f0) \
+                    + 3.0 * torch.sin(2 * np.pi * torch.frac(t * 1000.0))
+            else:
+                ph = 2 * np.pi * torch.frac(t * (f0 + 1000.0))
+            x = (0.1 * torch.exp(1j * ph)).to(torch.complex64)
+            pcm.append(_pcm16(rx.process(x)[0].cpu()))
+        torch.cuda.synchronize()
+        got = ffill.launches if mode == "FM" else agc.launches
+        want = 24 if mode == "FM" else 12
+        check(got == want, f"{mode}: kernel launches {got} == {want}")
+        f = tone_hz(np.concatenate(pcm[4:]))
+        check(abs(f - 1000.0) < 5.0, f"{mode}: audio peak at {f:.1f} Hz")
+        time_step(lambda: rx.process(x), 1, L, fs,
+                  f"{mode} receiver, 24.576 Msps", 20, smi)
+
+
+def phase_offline(receiver, agc):
+    """process_offline of 500 blocks (10 s) of 192 kHz int16 I/Q."""
+    print("phase 17: offline replay, 500 blocks at 192 kHz", flush=True)
+    fs, L, nb, rx_if = 192000, 3840, 500, 48000.0
+    n = torch.arange(nb * L, device=DEV, dtype=torch.float64)
+    ph = 2 * np.pi * torch.frac(n * ((rx_if + 1000.0) / fs))
+    g = torch.Generator(device=DEV).manual_seed(SEED + 17)
+    x = 0.2 * torch.stack([torch.cos(ph), torch.sin(ph)], dim=-1) \
+        + 0.003 * torch.randn((nb * L, 2), generator=g, device=DEV,
+                              dtype=torch.float64)
+    x16 = torch.clamp(x * 32767.0, -32768, 32767).to(torch.int16)
+    x16 = x16.reshape(nb, L, 2)
+    warm = receiver.make_receiver("USB", device=DEV)   # cuFFT plans
+    warm.set_freq(rx_if)
+    warm.process_offline(x16[:3])
+    rx = receiver.make_receiver("USB", device=DEV)
+    rx.set_freq(rx_if)
+    torch.cuda.synchronize()
+    agc.launches = 0
+    t0 = time.perf_counter()
+    audio = rx.process_offline(x16)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(agc.launches == nb, f"agc launches {agc.launches} == {nb}")
+    a = audio.cpu().numpy()
+    check(a.shape == (nb, 960) and np.isfinite(a).all(),
+          f"audio {a.shape}, finite")
+    f = tone_hz(_pcm16(a[-50:].reshape(-1)))
+    check(abs(f - 1000.0) < 5.0, f"audio peak at {f:.1f} Hz")
+    secs = nb * L / fs
+    print(f"  {nb} blocks ({secs:.2f} s of signal) in {dt:.3f} s: "
+          f"{secs / dt:.1f}x real time, {dt / nb * 1e3:.3f} ms/block "
+          "(host clock, synchronised)", flush=True)
 
 
 def main():
@@ -754,7 +1088,9 @@ def main():
               file=sys.stderr)
         return 2
     from ka9q_sdr_tpu_torch import interop
+    from ka9q_sdr_tpu_torch.io import modulate
     from ka9q_sdr_tpu_torch.models import bank as bank_mod
+    from ka9q_sdr_tpu_torch.models import receiver
     from ka9q_sdr_tpu_torch.models.demod_fm import _pl_measure
     from ka9q_sdr_tpu_torch.models.demod_linear import _acquire
     from ka9q_sdr_tpu_torch.ops import _kernels, agc, ffill, pstock
@@ -826,6 +1162,13 @@ def main():
     print(f"  always-on PLL acquisition ({lc.ring_size}-point FFT + search) "
           f"at ({SERVE['n_channels']}, {lc.ring_size}): {ms:.3f} ms/block "
           f"[{smi}]", flush=True)
+    del cam_bank
+
+    phase_multibank(bank_mod, ffill, agc, smi)
+    phase_multibank_card_vs_cpu(bank_mod, interop)
+    phase_receiver(receiver, modulate, ffill, agc, smi)
+    phase_receiver_wide(receiver, ffill, agc, smi)
+    phase_offline(receiver, agc)
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", flush=True)

@@ -10,7 +10,10 @@ layout and public names so each counterpart sits under the same path:
                  (``csrc/agc.cu``) and the column Stockham FFT
                  (``csrc/pstock.cu``).
 - ``models``   — the FM, AM and linear (SSB/CW/IQ/ISB/CAM PLL)
-                 demodulators and the channel bank with its live control.
+                 demodulators, the noise estimate, the single receiver
+                 with its control plane, and the single- and mixed-mode
+                 channel banks with their live control.
+- ``io``       — the I/Q test modulator.
 - ``interop``  — carries state between the two packages as numpy trees.
 
 It imports torch and numpy and never jax.  No function chooses a device by

@@ -1,8 +1,8 @@
 """Carry bank/demod/oscillator state between the JAX package and the port.
 
 The bank has no weights; what the two implementations share is state.  The
-JAX package's state is a tree of NamedTuples (BankState, FMState, AMState,
-LinearState, AGCState, OscState), plain tuples (the PLL's half-band cascade
+JAX package's state is a tree of NamedTuples (BankState, ReceiverState,
+FMState, AMState, LinearState, AGCState, OscState), plain tuples (the PLL's half-band cascade
 states) and None (absent rings); map it to numpy leaves
 (``jax.tree_util.tree_map(np.asarray, state)``) and ``state_from_jax``
 builds the port's tree of the same names on a device.  ``state_to_numpy``
@@ -19,13 +19,15 @@ from .models.bank import BankState
 from .models.demod_am import AMState
 from .models.demod_fm import FMState
 from .models.demod_linear import LinearState
+from .models.receiver import ReceiverState
 from .ops.agc import AGCState
 from .ops.nco import OscState
 
 __all__ = ["state_from_jax", "state_to_numpy"]
 
-_PORT = {cls.__name__: cls for cls in (BankState, FMState, AMState,
-                                       LinearState, AGCState, OscState)}
+_PORT = {cls.__name__: cls for cls in (BankState, ReceiverState, FMState,
+                                       AMState, LinearState, AGCState,
+                                       OscState)}
 _U32_FIELDS = {("OscState", "phase"), ("OscState", "freq")}
 
 

@@ -19,6 +19,9 @@ What differs from the JAX package, by design:
   the JAX package's int32 limb arithmetic (``_mul_mod_n``) only avoided
   int32 overflow.
 - State keeps complex tensors: there is no real-dtype packing boundary.
+- ``MultiBank`` holds ONE wideband overlap tensor, the same tensor in
+  every group's state (the JAX package keeps a copy per group and reads
+  group 0's).
 """
 
 from __future__ import annotations
@@ -59,6 +62,10 @@ __all__ = [
     "bank_set_doppler",
     "bank_reset_demod_row",
     "swap_filter_response",
+    "iq_from_i16",
+    "MultiBank",
+    "multibank_step",
+    "make_bank",
 ]
 
 _TWO32 = float(2**32)
@@ -337,9 +344,9 @@ def _isb_combine(f_fd: torch.Tensor, lo: torch.Tensor, N_dec: int,
     return base + torch.complex(2.0 * l_.real, 2.0 * u.imag)
 
 
-def bank_demod(cfg: BankConfig, dstate, baseband: torch.Tensor):
-    """Dispatch the batched demodulator for this bank's mode (the
-    Demodtab[] of modes.c:25-30)."""
+def bank_demod(cfg, dstate, baseband: torch.Tensor):
+    """Dispatch the demodulator of cfg.mode with cfg.demod_cfg (the
+    Demodtab[] of modes.c:25-30), for a BankConfig or a ReceiverConfig."""
     if cfg.mode.demod == "FM":
         return fm_demod(cfg.demod_cfg, dstate, baseband)
     if cfg.mode.demod == "AM":
@@ -370,15 +377,20 @@ def _pcm(audio: torch.Tensor) -> torch.Tensor:
     return torch.clamp(audio * 32767.0, -32768.0, 32767.0).to(torch.int16)
 
 
+def iq_from_i16(x_i16: torch.Tensor) -> torch.Tensor:
+    """(..., 2) int16 I/Q -> (...) complex64 full scale, on x_i16's device
+    (radio.c:38)."""
+    x = x_i16.to(torch.float32) * (1.0 / 32767.0)
+    return torch.complex(x[..., 0], x[..., 1])
+
+
 def bank_step_i16(
     cfg: BankConfig, state: BankState, x_i16: torch.Tensor,
     pcm_out: bool = False,
 ) -> tuple[BankState, torch.Tensor, dict]:
     """bank_step on raw (L, 2) int16 I/Q (radio.c:38 scaling on the
     device).  pcm_out=True also quantises the audio to int16 PCM."""
-    x = x_i16.to(torch.float32) * (1.0 / 32767.0)
-    state, audio, diag = bank_step(cfg, state,
-                                   torch.complex(x[..., 0], x[..., 1]))
+    state, audio, diag = bank_step(cfg, state, iq_from_i16(x_i16))
     return state, (_pcm(audio) if pcm_out else audio), diag
 
 
@@ -665,3 +677,136 @@ class ChannelBank:
                 bank.set_doppler(channel, f, r)
 
         return _Chan()
+
+
+def _complex_block(x: torch.Tensor) -> torch.Tensor:
+    """(L,) complex, or (L, 2) real packed I/Q, as (L,) complex64."""
+    if x.ndim == 2:
+        x = x.to(torch.float32)
+        return torch.complex(x[..., 0], x[..., 1])
+    return x.to(torch.complex64)
+
+
+def multibank_step(cfgs: Sequence[BankConfig], states: Sequence[BankState],
+                   iq_block: torch.Tensor):
+    """One wideband block through every group of a mixed-mode bank: ONE
+    master FFT, then each group's recenter, channelize and demod.
+
+    iq_block: (L,) complex64.  Returns (states, [(audio, diag), ...]); every
+    new state holds the same new overlap tensor."""
+    overlap, fdomain = master_execute(cfgs[0].master, states[0].overlap,
+                                      iq_block)
+    new_states, outs = [], []
+    for cfg, s in zip(cfgs, states):
+        s = bank_recenter(cfg, s)
+        new_r, new_nco, bb = bank_channelize(cfg, s, fdomain)
+        dstate, audio, diag = bank_demod(cfg, s.demod, bb)
+        new_states.append(s._replace(overlap=overlap, r=new_r, nco=new_nco,
+                                     demod=dstate))
+        outs.append((audio, diag))
+    return new_states, outs
+
+
+class MultiBank:
+    """Mixed-mode channel bank: several demod groups sharing ONE wideband
+    forward FFT (the master/slave idea of filter.c:22-35 at scale).  Each
+    group (mode, [freqs]) has its own config, state and batched demod.
+
+    groups: list of (mode_name, [freq_hz, ...]).  Extra keywords go to
+    make_bank_config.  One device, named by the caller; no mesh."""
+
+    def __init__(self, groups: Sequence[tuple[str, Sequence[float]]],
+                 samprate: float = 24.576e6, L: int = 491520,
+                 M: int = 557057, *, device, **kw):
+        self.device = torch.device(device)
+        self.group_real = [len(freqs) for _, freqs in groups]
+        self.group_freqs = [list(freqs) for _, freqs in groups]
+        cfgs = [make_bank_config(len(freqs), mode, samprate=samprate, L=L,
+                                 M=M, **kw) for mode, freqs in groups]
+        master = cfgs[0].master
+        for c in cfgs[1:]:
+            # a real error, not an assert: a group channelizing a spectrum
+            # of another FFT geometry would give garbled audio silently
+            if c.master != master:
+                raise ValueError(
+                    f"MultiBank groups must share one master: "
+                    f"{c.master} != {master}")
+        self.cfgs = [c.to(self.device) for c in cfgs]
+        states = [bank_init(c, freqs, device=self.device)
+                  for c, freqs in zip(cfgs, self.group_freqs)]
+        self.states = [s._replace(overlap=states[0].overlap) for s in states]
+        # each group's freshly initialised demod subtree, for init_channel's
+        # per-row respawn; no state tensor is ever written in place, so
+        # holding these references keeps them as they were built
+        self._fresh_demod = [s.demod for s in self.states]
+
+    def _put(self, x, dtype) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    def process(self, iq_block) -> list:
+        """iq_block: (L,) complex or (L, 2) float packed I/Q (numpy or
+        tensor).  Returns [(audio, diag), ...] per group."""
+        x = torch.as_tensor(iq_block, device=self.device)
+        self.states, outs = multibank_step(self.cfgs, self.states,
+                                           _complex_block(x))
+        return outs
+
+    def process_i16(self, x_i16) -> list:
+        """Raw (L, 2) int16 ingest, scaled on the device (radio.c:38).
+        Returns [(audio, diag), ...] per group."""
+        self.states, outs = multibank_step(
+            self.cfgs, self.states, iq_from_i16(self._put(x_i16, torch.int16)))
+        return outs
+
+    def process_i16_pcm(self, x_i16) -> list:
+        """int16 in, int16 PCM out.  Returns [(pcm, diag), ...] per group."""
+        return [(_pcm(audio), diag) for audio, diag in self.process_i16(x_i16)]
+
+    def tune(self, group: int, idx: int, freq_hz: float) -> None:
+        """Retune one channel of one group, phase-continuously
+        (ChannelBank.tune)."""
+        # device state first, host list second (see ChannelBank.tune)
+        self.states[group] = bank_tune(self.cfgs[group], self.states[group],
+                                       idx, freq_hz)
+        self.group_freqs[group][idx] = freq_hz
+
+    def set_doppler(self, group: int, idx: int, doppler_hz: float,
+                    rate_hz_s: float) -> None:
+        """Doppler-steer one channel of one group (ChannelBank.set_doppler)."""
+        self.states[group] = bank_set_doppler(
+            self.cfgs[group], self.states[group], idx,
+            self.group_freqs[group][idx],
+            doppler_hz=doppler_hz, rate_hz_s=rate_hz_s)
+
+    def init_channel(self, group: int, idx: int, freq_hz: float) -> None:
+        """(Re)commission one slot of one group: fresh demod state for the
+        row (the reference's respawned demod thread on a mode change,
+        radio.c:322-374), a phase-continuous retune, and a cleared Doppler
+        sweep."""
+        self.states[group] = bank_reset_demod_row(
+            self.states[group], self._fresh_demod[group], idx,
+            len(self.group_freqs[group]))
+        self.tune(group, idx, freq_hz)
+        self.set_doppler(group, idx, 0.0, 0.0)
+
+    def set_filter(self, group: int, low: float | None = None,
+                   high: float | None = None,
+                   kaiser_beta: float | None = None) -> None:
+        """Hot-swap ONE group's shared frequency response; the other
+        groups' responses are untouched (swap_filter_response)."""
+        self.cfgs[group], self.states[group] = swap_filter_response(
+            self.cfgs[group], self.states[group], low=low, high=high,
+            kaiser_beta=kaiser_beta)
+
+
+def make_bank(n_channels: int, mode: str = "FM",
+              freqs_hz: Sequence[float] | None = None, *, device,
+              **kw) -> ChannelBank:
+    """A ChannelBank; by default the channels spread over the usable 90% of
+    the band (the outer 5% on each side left out)."""
+    cfg = make_bank_config(n_channels, mode, **kw)
+    if freqs_hz is None:
+        usable = 0.9 * cfg.samprate
+        freqs_hz = list(np.linspace(-usable / 2, usable / 2, n_channels,
+                                    endpoint=False))
+    return ChannelBank(cfg, freqs_hz, device=device)

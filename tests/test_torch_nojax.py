@@ -1,7 +1,8 @@
 """The port must import and run where jax is not installed (the machine
 with the card has none) and without the JAX package: import every port
 module and run two blocks of a tiny bank of each demodulator family, a live
-retune and a column FFT on the CPU in a subprocess where ``import jax`` and
+retune, a mixed-mode MultiBank, a receiver fed by the test modulator, and a
+column FFT on the CPU in a subprocess where ``import jax`` and
 ``import ka9q_sdr_tpu`` fail."""
 
 import subprocess
@@ -18,7 +19,10 @@ import torch
 import ka9q_sdr_tpu_torch
 from ka9q_sdr_tpu_torch import interop
 from ka9q_sdr_tpu_torch.models import demod_am, demod_fm, demod_linear
-from ka9q_sdr_tpu_torch.models.bank import ChannelBank, make_bank_config
+from ka9q_sdr_tpu_torch.models.bank import (ChannelBank, MultiBank,
+                                            make_bank_config)
+from ka9q_sdr_tpu_torch.models import noise, receiver
+from ka9q_sdr_tpu_torch.io import Modulator
 from ka9q_sdr_tpu_torch.ops import (_kernels, agc, decimate, ffill, iir,
                                     pstock)
 
@@ -36,6 +40,22 @@ for mode, shape in (("FM", (2, 960)), ("AM", (2, 960)), ("CAM", (2, 960)),
     bank.set_filter(-3000.0, 3000.0)
     assert pcm.shape == shape and pcm.dtype == torch.int16, mode
     interop.state_to_numpy(bank.state)
+mb = MultiBank([("FM", [-2e5]), ("USB", [1e5, 3e5]), ("CAM", [0.0])],
+               samprate=fs, L=L, M=34817, device="cpu")
+for _ in range(2):
+    outs = mb.process_i16_pcm(x)
+assert [p.shape for p, _ in outs] == [(1, 960), (2, 960), (1, 960)]
+mb.init_channel(1, 0, 1.5e5)
+rx = receiver.make_receiver("USB", device="cpu")
+rx.set_freq(30000.0)
+mod = Modulator("usb", frequency=31000.0, device="cpu")
+iq = torch.cat([mod.process(np.zeros(240, np.float32)) for _ in range(4)])
+for _ in range(2):
+    audio, diag = rx.process(iq)
+assert audio.shape == (960,) and float(diag["n0"]) >= 0.0
+rx.set_mode("FM")
+assert rx.process_offline(np.zeros((2, 3840, 2), np.int16)).shape == (2, 960)
+interop.state_to_numpy(rx.state)
 yr, yi = pstock.make_fft_cols(8, 4, 4)(torch.ones(8, 4), torch.zeros(8, 4))
 assert float(yr[0, 0]) == 8.0
 assert ffill.launches == agc.launches == pstock.launches == 0
