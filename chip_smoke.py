@@ -7,9 +7,12 @@ Run from the root of a checkout, with no arguments:
 
 It builds the hand-written CUDA kernels from ``ka9q_sdr_tpu_torch/csrc``
 (one ``nvcc`` per source, all at once) and holds each against its plain
-PyTorch version: the FM forward fill and the hang AGC bit for bit, the
-column Stockham FFT within 2e-6 (and against numpy and cuFFT).  Then it
-drives the channel bank through its user entry points:
+PyTorch version: the FM forward fill (float, complex and conjugate-view
+values) and the hang AGC bit for bit, the column Stockham FFT within 2e-6
+for every Q from 1 to 16384 (and against numpy).  It times each at the
+main path's shapes beside its bound (bytes over 3.35 TB/s) and, for the
+column FFT, beside cuFFT.  Then it drives the channel bank through its
+user entry points:
 
 - the FM+PL bank (the path ``bench.py`` measures and ``apps/bankd.py``
   serves) at the 4096-channel 20 ms serving geometry and at the
@@ -30,7 +33,7 @@ drives the channel bank through its user entry points:
   card, card against CPU, with mid-stream retune, filter and mode edits;
   the receiver behind a 24.576 Msps front end; and a 10 s offline replay.
 
-Times come from CUDA events and torch.profiler.  Phases print their
+Times come from CUDA events.  Phases print their
 findings line by line.
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Any failed check makes the exit code 1
@@ -38,6 +41,7 @@ and suppresses both JSON lines; no CUDA device means exit code 2.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -58,6 +62,11 @@ NO_PL = (2900,)
 LONG_SIGNAL = (11, 4096, 8000)
 SEED = 20241016
 DEV = "cuda"
+#: H100 SXM peaks (NVIDIA's data sheet, at 700 W): device memory rate and
+#: float32 rate outside the tensor cores; and its boost clock, which sets
+#: how long torch.cuda._sleep spins per cycle
+HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
+CLOCK_HZ = 1.98e9
 #: CAM (PLL) bank at the serving geometry: lock comes 90-150 blocks in (35
 #: to the first acquisition, the 1 Hz loop's pull-in, then the 1 s
 #: hysteresis climbing from below zero).
@@ -108,24 +117,61 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters, match=None):
-    """Device time per call from torch.profiler's CUDA activity: the summed
-    durations of the device events (kernels, copies) whose name contains
-    `match` (of every one when None), over `iters` calls after a warm-up.
-    Unlike cuda_ms it leaves out the gaps where the device waits for the
-    host."""
-    fn()
+_FLUSH = []
+
+
+def flush_l2():
+    """Overwrite 128 MB, more than the H100's 50 MB L2, so that the next
+    launch reads its inputs from device memory."""
+    if not _FLUSH:
+        _FLUSH.append(torch.zeros(128 << 20, dtype=torch.uint8, device=DEV))
+    _FLUSH[0].bitwise_not_()
+
+
+def _span_ms(calls):
+    """Device time of the work that calls() queues: CUDA events around it
+    while a spin kernel holds the device until all of it is queued, so no
+    enqueue gap of the host counts (unlike cuda_ms).  calls() runs twice:
+    the first run, unspun, measures how long the host takes to queue it.
+    Where the host had to wait for the device to queue it (a host sync, or
+    more launches than the device's launch queue holds, about a thousand),
+    the span would hold host time: nan, with a note."""
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and (match is None or match in e.name))
-    return total / iters / 1e3
+    t0 = time.perf_counter()
+    calls()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin = 4 * host + 5e-3
+    torch.cuda._sleep(int(spin * CLOCK_HZ))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    calls()
+    end.record()
+    queued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if queued >= spin:
+        print(f"  (not measured: queuing took {queued * 1e3:.1f} ms, past "
+              f"the {spin * 1e3:.1f} ms spin)", flush=True)
+        return float("nan")
+    return start.elapsed_time(end)
+
+
+def device_ms(fn, iters, cold=False):
+    """Device time per call of fn() (see _span_ms): warm, `iters` calls
+    queued back to back; cold, each call timed alone after a flush of the
+    L2, as a caller whose inputs were written long before would find it,
+    less the flush's own span."""
+    if not cold:
+        def calls():
+            for _ in range(iters):
+                fn()
+        return _span_ms(calls) / iters
+    total = 0.0
+    for _ in range(iters):
+        total += _span_ms(lambda: (flush_l2(), fn())) - _span_ms(flush_l2)
+    return total / iters
 
 
 def bank_freqs(n):
@@ -185,49 +231,79 @@ def tone_hz(pcm_rows, rate=48000.0):
     return np.argmax(spec) * rate / len(pcm_rows)
 
 
+def bound_ms(nbytes, flops=0.0):
+    """Least device time for the work: bytes over the H100's 3.35 TB/s or
+    float32 operations over its 67 TFLOP/s, whichever is larger; and which
+    one sets it."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fill_bytes(B, T, dtype):
+    """Bytes a fill must move: mask, values and inits read, outputs
+    written, each once."""
+    w = 8 if dtype == torch.complex64 else 4
+    return B * T * (1 + 2 * w) + B * w
+
+
 def phase_kernel(ffill):
     """Kernel against plain version: bit-equal, and timed at the main
-    path's shapes."""
+    path's shapes beside each shape's bound."""
     print("phase 2: ffill kernel against its plain version", flush=True)
     g = torch.Generator(device=DEV).manual_seed(SEED)
     max_err = 0.0
-    cases = [(4096, 960), (8192, 7104), (7, 100), (130, 391)]
+    cases = [(4096, 960), (8192, 7104), (7, 100), (130, 391), (1, 960),
+             (3072, 960), (5, 9)]
     for B, T in cases:
-        for dtype in (torch.complex64, torch.float32):
+        for kind in ("complex64", "conj view", "float32"):
+            dtype = torch.float32 if kind == "float32" else torch.complex64
             v = torch.randn((B, T), generator=g, device=DEV, dtype=dtype)
+            if kind == "conj view":
+                v = torch.conj(v)
             init = torch.randn((B,), generator=g, device=DEV, dtype=dtype)
             m = torch.rand((B, T), generator=g, device=DEV) < 0.6
             m[::5] = False                      # rows that take init
+            m[1::5] = True                      # rows all strong
             for mask in (m, torch.zeros_like(m)):
                 (got,) = ffill.forward_fill_multi((v,), mask, (init,))
                 (want,) = ffill.fill_plain((v,), mask, (init,))
                 torch.cuda.synchronize()
                 max_err = max(max_err, float((got - want).abs().max()))
                 check(torch.equal(got, want),
-                      f"kernel == plain at ({B}, {T}) {dtype}"
+                      f"kernel == plain at ({B}, {T}) {kind}"
                       f"{' all rows weak' if not mask.any() else ''}")
     times = {}
-    for B, T in ((4096, 960), (8192, 7104)):
-        for dtype in (torch.complex64, torch.float32):
+    for B, T in ((4096, 960), (8192, 7104), (1, 960), (3072, 960)):
+        for kind in ("conj view", "float32"):
+            dtype = torch.float32 if kind == "float32" else torch.complex64
             v = torch.randn((B, T), generator=g, device=DEV, dtype=dtype)
+            if kind == "conj view":            # as fm_demod passes it
+                v = torch.conj(v)
             init = torch.zeros((B,), device=DEV, dtype=dtype)
             m = torch.rand((B, T), generator=g, device=DEV) < 0.9
-            plain = cuda_ms(lambda: ffill.fill_plain((v,), m, (init,)), 20)
-            kern = cuda_ms(lambda: ffill.forward_fill_multi((v,), m, (init,)),
-                           20)
-            kern2 = cuda_ms(lambda: ffill.forward_fill_multi((v,), m, (init,)),
-                            20)
-            plain2 = cuda_ms(lambda: ffill.fill_plain((v,), m, (init,)), 20)
-            dev_k = device_ms(
-                lambda: ffill.forward_fill_multi((v,), m, (init,)), 20,
-                "ffill_rows")
-            dev_p = device_ms(lambda: ffill.fill_plain((v,), m, (init,)), 20)
-            times[(B, T, dtype)] = (dev_k, dev_p)
-            nbytes = B * T * (1 + 2 * v.element_size())
-            print(f"  time ({B}, {T}) {dtype}: kernel {kern:.4f}/{kern2:.4f} "
+
+            def kern_fn():
+                return ffill.forward_fill_multi((v,), m, (init,))
+
+            def plain_fn():
+                return ffill.fill_plain((v,), m, (init,))
+
+            plain = cuda_ms(plain_fn, 20)
+            kern = cuda_ms(kern_fn, 20)
+            kern2 = cuda_ms(kern_fn, 20)
+            plain2 = cuda_ms(plain_fn, 20)
+            warm = device_ms(kern_fn, 20)
+            dev_k = device_ms(kern_fn, 20, cold=True)
+            dev_p = device_ms(plain_fn, 20, cold=True)
+            nbytes = fill_bytes(B, T, dtype)
+            bound, _ = bound_ms(nbytes)
+            times[(B, T, dtype)] = (dev_k, dev_p, bound)
+            print(f"  time ({B}, {T}) {kind}: kernel {kern:.4f}/{kern2:.4f} "
                   f"ms, plain {plain:.4f}/{plain2:.4f} ms (CUDA events); "
-                  f"device only: kernel {dev_k:.4f} ms, plain {dev_p:.4f} ms;"
-                  f" kernel moves {nbytes / 1e6:.1f} MB -> "
+                  f"device only: kernel {warm:.4f} ms warm, {dev_k:.4f} ms "
+                  f"cold L2, plain {dev_p:.4f} ms cold; bound {bound:.3g} ms "
+                  f"({nbytes / 1e6:.3g} MB at 3.35 TB/s), kernel (cold) at "
+                  f"{bound / dev_k:.0%} of it, "
                   f"{nbytes / (dev_k / 1e3) / 1e9:.0f} GB/s", flush=True)
     return max_err, times
 
@@ -434,22 +510,29 @@ def phase_agc(agc):
         lev, gain, hang = _agc_case(B, T, g)
         st = agc.AGCState(gain, hang)
         kern = cuda_ms(lambda: agc.agc_block(st, lev, p), iters)
+        # the plain loop queues ~12 launches per step, far more than the
+        # launch queue holds, so device_ms cannot time it: CUDA events
         plain = cuda_ms(lambda: agc.agc_plain(gain, hang, lev, p), 1)
         kern2 = cuda_ms(lambda: agc.agc_block(st, lev, p), iters)
+        warm = device_ms(lambda: agc.agc_block(st, lev, p), iters)
         dev_k = device_ms(lambda: agc.agc_block(st, lev, p), iters,
-                          "agc_rows")
-        dev_p = device_ms(lambda: agc.agc_plain(gain, hang, lev, p), 1)
-        times[(B, T)] = (dev_k, dev_p)
-        cycles = dev_k * 1e-3 * 1.98e9 / T
+                          cold=True)
+        # levels in, gains out, gain and hang count in and out
+        bound, _ = bound_ms(B * T * 8 + B * 16)
+        times[(B, T)] = (dev_k, plain, bound)
+        cycles = dev_k * 1e-3 * CLOCK_HZ / T
         print(f"  time ({B}, {T}): kernel {kern:.4f}/{kern2:.4f} ms, plain "
               f"loop {plain:.2f} ms ({T} steps) (CUDA events); device only:"
-              f" kernel {dev_k:.4f} ms (~{cycles:.0f} cycles per sample at "
-              f"1.98 GHz), plain {dev_p:.2f} ms", flush=True)
+              f" kernel {warm:.4f} ms warm, {dev_k:.4f} ms cold L2 "
+              f"(~{cycles:.0f} cycles per sample at 1.98 GHz); bound "
+              f"{bound:.4f} ms, kernel (cold) at {bound / dev_k:.0%} of it",
+              flush=True)
     return max_err, times
 
 
 def phase_pstock(pstock):
-    """Column FFT kernel against its plain version, numpy and cuFFT."""
+    """Column FFT kernel against its plain version, numpy and cuFFT: every
+    Q it takes, then timed at (4096, 4096) beside its bound and cuFFT."""
     print("phase 4: column Stockham FFT kernel", flush=True)
     g = torch.Generator(device=DEV).manual_seed(SEED + 2)
     shapes = ((256, 512, 128), (4096, 4096, 256), (1024, 3072, 256))
@@ -463,7 +546,15 @@ def phase_pstock(pstock):
     launches = pstock.launches
     check(launches == len(shapes), f"pstock launches {launches} == "
           f"{len(shapes)}")
-    max_err = 0.0
+    # every Q from 1 to MAX_Q, at a P that is no multiple of any tile (8,
+    # 16 or 128 columns): 3 tiles of 128 and 5 columns, 24 of 16 and 5
+    for q in range(15):
+        Q, P = 1 << q, 389
+        xr = torch.randn((Q, P), generator=g, device=DEV)
+        xi = torch.randn((Q, P), generator=g, device=DEV)
+        planes[(Q, P)] = (xr, xi)
+        outs[(Q, P)] = pstock.make_fft_cols(Q, P, P)(xr, xi)
+    max_err, worst = 0.0, 0.0
     for (Q, P), (yr, yi) in outs.items():
         xr, xi = planes[(Q, P)]
         pr, pi = pstock.fft_cols_plain(xr, xi)
@@ -475,9 +566,11 @@ def phase_pstock(pstock):
         e_np = np.abs(got.cpu().numpy() - want).max() / scale
         e_plain = float((got - plain).abs().max()) / scale
         max_err = max(max_err, float((got - plain).abs().max()))
+        worst = max(worst, e_np, e_plain)
         check(e_np < 2e-6 and e_plain < 2e-6,
-              f"column FFT ({Q}, {P}): rel err {e_np:.2e} vs np.fft, "
-              f"{e_plain:.2e} vs plain")
+              f"column FFT ({Q}, {P}), plan {pstock.radix_plan(Q)}: rel "
+              f"err {e_np:.2e} vs np.fft, {e_plain:.2e} vs plain")
+    print(f"  worst rel err over {len(outs)} shapes {worst:.2e}", flush=True)
     xr, xi = planes[(4096, 4096)]
     f = fns[(4096, 4096)]
     xc = torch.complex(xr, xi)
@@ -485,16 +578,20 @@ def phase_pstock(pstock):
     plain = cuda_ms(lambda: pstock.fft_cols_plain(xr, xi), 5)
     cufft = cuda_ms(lambda: torch.fft.fft(xc, dim=0), 20)
     kern2 = cuda_ms(lambda: f(xr, xi), 20)
-    dev_k = device_ms(lambda: f(xr, xi), 20, "fft_cols")
-    dev_p = device_ms(lambda: pstock.fft_cols_plain(xr, xi), 5)
-    dev_c = device_ms(lambda: torch.fft.fft(xc, dim=0), 20)
-    mb = 4096 * 4096 * 16 / 1e6
+    dev_k = device_ms(lambda: f(xr, xi), 20, cold=True)
+    dev_p = device_ms(lambda: pstock.fft_cols_plain(xr, xi), 5, cold=True)
+    dev_c = device_ms(lambda: torch.fft.fft(xc, dim=0), 20, cold=True)
+    nbytes = 4096 * 4096 * 16
+    bound, by = bound_ms(nbytes, 5.0 * 4096 * 12 * 4096)
     print(f"  time (4096, 4096): kernel {kern:.4f}/{kern2:.4f} ms, plain "
           f"{plain:.3f} ms, torch.fft (cuFFT, complex64) {cufft:.4f} ms "
-          f"(CUDA events); device only: kernel {dev_k:.4f} ms "
-          f"({mb / dev_k:.0f} GB/s of reads+writes), plain {dev_p:.3f} ms, "
-          f"cuFFT {dev_c:.4f} ms", flush=True)
-    return launches, max_err, (dev_k, dev_p, dev_c)
+          f"(CUDA events); device only, cold L2: kernel {dev_k:.4f} ms "
+          f"({nbytes / 1e6 / dev_k:.0f} GB/s of reads+writes), plain "
+          f"{dev_p:.3f} ms, cuFFT {dev_c:.4f} ms; bound {bound:.4f} ms (set "
+          f"by {by}: {nbytes / 1e6:.0f} MB at 3.35 TB/s), kernel at "
+          f"{bound / dev_k:.0%} of it, cuFFT at {bound / dev_c:.0%}",
+          flush=True)
+    return launches, max_err, (dev_k, dev_p, dev_c, bound)
 
 
 def _bank_state_finite(st):
@@ -752,33 +849,39 @@ def phase_live_control(bank_mod):
           f"audio at {f:.1f} Hz")
 
 
-def time_step(step, n_ch, L, fs, label, iters, smi):
+def time_step(step, n_ch, L, fs, label, iters, smi, kernel_ms=None):
     """Per-block device time of step() on a device-resident input, after
-    a warm-up: CUDA events for the block, torch.profiler for the kernels'
-    busy time and the device's idle share."""
+    a warm-up: CUDA events for the block, device_ms (one block at a time,
+    the mean of three) for the device's busy time and idle share.  kernel_ms: the device
+    time per block of one kernel's launches, printed as a share of it."""
     step()
     torch.cuda.reset_peak_memory_stats()
     t_host = time.perf_counter()
     ms = cuda_ms(step, iters)
     t_host = (time.perf_counter() - t_host) / (iters + 1) * 1e3
     peak = torch.cuda.max_memory_allocated() / 2**30
-    busy = device_ms(step, 3)
+    busy = sum(device_ms(step, 1) for _ in range(3)) / 3
+    idle = max(0.0, 1 - busy / ms) if busy == busy else busy    # nan stays
     rate = n_ch * L / (ms / 1e3) / 1e6
     realtime = (L / fs) / (ms / 1e3)
     print(f"  {label}: {ms:.3f} ms/block on the device ({t_host:.3f} ms host "
           f"wall incl. sync), {rate:,.{0 if rate >= 100 else 3}f} ch x Msps, "
           f"{realtime:.2f}x "
-          f"realtime, peak {peak:.1f} GiB; kernels busy {busy:.3f} ms/block "
-          f"(profiler), device idle {max(0.0, 1 - busy / ms):.0%} [{smi}]",
+          f"realtime, peak {peak:.1f} GiB; device busy {busy:.3f} ms/block, "
+          f"device idle {idle:.0%} [{smi}]",
           flush=True)
+    if kernel_ms is not None:
+        print(f"  {label}: its kernel launches {kernel_ms:.4f} ms/block, "
+              f"{kernel_ms / busy:.1%} of the device time", flush=True)
     return ms, rate, busy
 
 
-def time_bank(bank, L, signal, label, iters, smi):
+def time_bank(bank, L, signal, label, iters, smi, kernel_ms=None):
     """time_step of a ChannelBank's int16-in, PCM-out block."""
     x = make_block(0, L, bank.freqs, signal, (), DEV)
     ms, rate, _ = time_step(lambda: bank.process_i16_pcm(x),
-                            bank.cfg.n_channels, L, FS, label, iters, smi)
+                            bank.cfg.n_channels, L, FS, label, iters, smi,
+                            kernel_ms)
     return ms, rate
 
 
@@ -1108,9 +1211,15 @@ def main():
     for name, kl in libs.items():
         print(f"  {name}: {kl.path.name} nvcc {kl.seconds:.2f} s (cached: "
               f"{kl.cached})", flush=True)
+        kernel = name
         for line in kl.log.splitlines():
+            m = re.search(r"Function properties for \S*?"
+                          r"(ffill_rows|agc_rows|fft_cols_small|fft_cols)"
+                          r"(?:ILi(\d+)E)?", line)
+            if m:
+                kernel = m[1] + (f"<{m[2]}>" if m[2] else "")
             if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}", flush=True)
+                print(f"  ptxas {kernel}: {line.strip()}", flush=True)
 
     max_err, ktimes = phase_kernel(ffill)
     agc_err, agc_times = phase_agc(agc)
@@ -1127,15 +1236,23 @@ def main():
 
     print("phase 12: timing (CUDA events, device-resident int16 input)",
           flush=True)
+
+    def fills_ms(T):
+        """An FM block's two fills (complex, float) at phase 2's cold
+        times."""
+        B = SERVE["n_channels"] if T == 960 else LONG["n_channels"]
+        return sum(ktimes[(B, T, d)][0] for d in (torch.complex64,
+                                                   torch.float32))
+
     serve_cfg = bank_mod.make_bank_config(SERVE["n_channels"], "FM",
                                           samprate=FS, L=SERVE["L"],
                                           M=SERVE["M"], enable_pl=True)
     serve_bank = bank_mod.ChannelBank(serve_cfg, freqs, device=DEV)
     time_bank(serve_bank, SERVE["L"], SIGNAL, "FM+PL 4096 ch, 20 ms blocks",
-              20, smi)
+              20, smi, fills_ms(960))
     del serve_bank
     time_bank(long_bank, LONG["L"], LONG_SIGNAL, "FM+PL 8192 ch, long blocks",
-              6, smi)
+              6, smi, fills_ms(7104))
     del long_bank
     time_bank(cam_bank, SERVE["L"], SIGNAL, "CAM 4096 ch, 20 ms blocks", 20,
               smi)
@@ -1175,9 +1292,9 @@ def main():
         for f in FAILURES:
             print(f"  {f}", flush=True)
         return 1
-    k_ms, p_ms = ktimes[(4096, 960, torch.complex64)]
-    a_ms, a_plain = agc_times[(4096, 960)]
-    s_ms, s_plain, _ = pst_times
+    k_ms, p_ms, k_bound = ktimes[(4096, 960, torch.complex64)]
+    a_ms, a_plain, a_bound = agc_times[(4096, 960)]    # a_plain: CUDA events
+    s_ms, s_plain, s_cufft, s_bound = pst_times
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "ffill",
@@ -1188,6 +1305,9 @@ def main():
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
+        "bound_ms": k_bound,
+        "bound_by": "bytes",
+        "library_ms": None,
     }, {
         "name": "agc",
         "route": "cuda",
@@ -1197,6 +1317,9 @@ def main():
         "max_abs_err": agc_err,
         "ms": a_ms,
         "plain_ms": a_plain,
+        "bound_ms": a_bound,
+        "bound_by": "bytes",
+        "library_ms": None,
     }, {
         "name": "pstock",
         "route": "cuda",
@@ -1206,6 +1329,9 @@ def main():
         "max_abs_err": pst_err,
         "ms": s_ms,
         "plain_ms": s_plain,
+        "bound_ms": s_bound,
+        "bound_by": "bytes",
+        "library_ms": s_cufft,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -2,37 +2,39 @@
 //
 // Replaces the TPU kernel ka9q_sdr_tpu/ops/ffill.py `_fill_pallas` (a
 // log2(T)-round lane-roll scan in VMEM, gridded over 64-row blocks).  For
-// each row b of one or more (B, T) value arrays sharing one bool mask:
+// each row b of one to four (B, T) value arrays sharing one bool mask:
 //
 //     out[b, n] = v[b, k]  for the last k <= n with mask[b, k],
 //     out[b, n] = init[b]  where no such k exists.
 //
-// Design for Hopper: one thread block per row (B is 4096-8192 on the main
-// path, which keeps all 132 SMs busy).  The row is walked in tiles of
-// blockDim.x positions.  Each thread holds one position; a block-wide
-// inclusive max-scan of (mask ? n : -1) - warp shuffles, then one pass over
-// the per-warp totals in shared memory - gives the last valid index inside
-// the tile, and a carry (the running max) joins the tiles.  A strong
-// position copies its own value (a coalesced load); a weak one reads the
-// value at its last valid index, which lies in this or an earlier tile of
-// the same row and is still in L1/L2.
+// Design for Hopper: one warp per row, eight rows per block, no shared
+// memory and no barrier.  The flat (B*T) arrays are cut into runs of 8
+// positions aligned to the start of the arrays: a lane loads a run's mask as
+// one 8-byte word and each value as 16-byte vectors (four per complex value,
+// two per float one).  The few runs that a row boundary cuts, and every run
+// when a base pointer is misaligned, go position by position.  The warp
+// walks its row 32 runs at a time.  Each lane loads its run's mask and values
+// together, then scans the run serially in registers: a strong position
+// takes its own value, a weak one the last strong value before it.  That
+// value comes from the lane's own registers, or from the nearest earlier
+// lane whose run has a strong position (a ballot and one shuffle per float),
+// or from the carry: the last strong value of the earlier chunks, which
+// starts as the row's init.  A complex value may be a conjugate view: its
+// flag makes the load negate the imaginary part.
 //
-// Bound: a pure copy/select, limited by device memory.  Per element it
-// reads the 1-byte mask and each value (4 or 8 bytes) once and writes each
-// output once: at (4096, 960) complex that is about 4M x (1 + 8 + 8) bytes.
-// The output is bit-exact against the plain PyTorch version (selects only).
-//
-// Complex values arrive as interleaved float2 (complex64 storage), so no
-// plane split or re-join is needed.  All value arrays sharing the mask are
-// filled in one launch.
+// Bound: a pure copy/select, limited by device memory.  Per element it reads
+// the 1-byte mask and each value (4 or 8 bytes) once and writes each output
+// once: 17 bytes per complex position, 9 per float one.  The output is
+// bit-exact against the plain PyTorch version (selects and sign flips only).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kRun = 8;     // positions per lane per chunk
+constexpr int kSlots = 16;  // floats of one value array a lane holds
+constexpr int kWarps = 8;   // rows per block
 constexpr int kMaxValues = 4;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -41,66 +43,171 @@ struct FillArgs {
   void* out[kMaxValues];
   const void* init[kMaxValues];
   int width[kMaxValues];  // 1: float, 2: float2 (complex64)
-  int n_values;
+  int conj[kMaxValues];   // 1: negate the imaginary part on load
 };
 
-__device__ __forceinline__ int warp_incl_max(int x, int lane) {
+// The run of positions [g0, g0 + kRun) of one value array into x (w floats
+// per position); positions outside [lo, hi) stay 0 and are not read.
+__device__ __forceinline__ void load_run(const float* __restrict__ v, int w,
+                                         bool full, long long g0,
+                                         long long lo, long long hi,
+                                         float (&x)[kSlots]) {
+  if (full) {
+    const float4* p = reinterpret_cast<const float4*>(v + g0 * w);
 #pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    int y = __shfl_up_sync(kFull, x, d);
-    if (lane >= d) x = max(x, y);
-  }
-  return x;
-}
-
-__global__ void __launch_bounds__(kThreads)
-ffill_rows(const unsigned char* __restrict__ mask, int T, FillArgs args) {
-  __shared__ int warp_tot[2][kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const size_t row = (size_t)blockIdx.x * (size_t)T;
-  const unsigned char* m = mask + row;
-
-  int carry = -1;  // last valid index of the row before this tile
-  int buf = 0;
-  for (int t0 = 0; t0 < T; t0 += kThreads, buf ^= 1) {
-    const int t = t0 + threadIdx.x;
-    const bool in_row = t < T;
-    const bool strong = in_row && m[t] != 0;
-    int x = warp_incl_max(strong ? t : -1, lane);
-    if (lane == 31) warp_tot[buf][warp] = x;
-    __syncthreads();
-    if (warp == 0) {
-      int w = lane < kWarps ? warp_tot[buf][lane] : -1;
-      w = warp_incl_max(w, lane);
-      if (lane < kWarps) warp_tot[buf][lane] = w;
+    for (int q = 0; q < kSlots / 4; ++q) {
+      if (q < 2 * w) {
+        const float4 a = __ldg(p + q);
+        x[4 * q] = a.x;
+        x[4 * q + 1] = a.y;
+        x[4 * q + 2] = a.z;
+        x[4 * q + 3] = a.w;
+      }
     }
-    __syncthreads();
-    // warp_tot[buf] is rewritten two tiles later, behind the next tile's
-    // first __syncthreads, so no third barrier is needed here.
-    if (warp > 0) x = max(x, warp_tot[buf][warp - 1]);
-    const int last = max(x, carry);
-    carry = max(carry, warp_tot[buf][kWarps - 1]);
-
-    if (in_row) {
-      // constant trip count: args.v[i] etc. stay kernel-parameter loads
+    return;
+  }
 #pragma unroll
-      for (int i = 0; i < kMaxValues; ++i) {
-        if (i >= args.n_values) break;
-        if (args.width[i] == 2) {
-          const float2* v = static_cast<const float2*>(args.v[i]) + row;
-          float2* o = static_cast<float2*>(args.out[i]) + row;
-          o[t] = last >= 0 ? v[last]
-                           : static_cast<const float2*>(args.init[i])[blockIdx.x];
-        } else {
-          const float* v = static_cast<const float*>(args.v[i]) + row;
-          float* o = static_cast<float*>(args.out[i]) + row;
-          o[t] = last >= 0 ? v[last]
-                           : static_cast<const float*>(args.init[i])[blockIdx.x];
-        }
+  for (int k = 0; k < kSlots; ++k) x[k] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kRun; ++k) {
+    const long long g = g0 + k;
+    if (g >= lo && g < hi) {
+      if (w == 2) {
+        x[2 * k] = __ldg(v + 2 * g);
+        x[2 * k + 1] = __ldg(v + 2 * g + 1);
+      } else {
+        x[k] = __ldg(v + g);
       }
     }
   }
+}
+
+__device__ __forceinline__ void store_run(float* __restrict__ o, int w,
+                                          bool full, long long g0,
+                                          long long lo, long long hi,
+                                          const float (&x)[kSlots]) {
+  if (full) {
+    float4* p = reinterpret_cast<float4*>(o + g0 * w);
+#pragma unroll
+    for (int q = 0; q < kSlots / 4; ++q)
+      if (q < 2 * w)
+        p[q] = make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kRun; ++k) {
+    const long long g = g0 + k;
+    if (g >= lo && g < hi) {
+      if (w == 2) {
+        o[2 * g] = x[2 * k];
+        o[2 * g + 1] = x[2 * k + 1];
+      } else {
+        o[g] = x[k];
+      }
+    }
+  }
+}
+
+template <int N>
+__global__ void __launch_bounds__(kWarps * 32)
+ffill_rows(const unsigned char* __restrict__ mask, int B, int T, bool vec,
+           FillArgs args) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= B) return;  // whole warps only
+  const long long lo = (long long)row * T, hi = lo + T;
+
+  float carry[N][2];  // last strong value so far (the init before any)
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (args.width[i] == 2) {
+      const float2 c = static_cast<const float2*>(args.init[i])[row];
+      carry[i][0] = c.x;
+      carry[i][1] = c.y;
+    } else {
+      carry[i][0] = static_cast<const float*>(args.init[i])[row];
+      carry[i][1] = 0.0f;
+    }
+  }
+
+  for (long long r0 = lo / kRun; r0 * kRun < hi; r0 += 32) {
+    const long long g0 = (r0 + lane) * kRun;
+    const bool full = vec && g0 >= lo && g0 + kRun <= hi;
+    unsigned bits = 0;  // bit k: position g0 + k lies in the row and is strong
+    float x[N][kSlots];
+    if (full) {
+      const uint2 q = __ldg(reinterpret_cast<const uint2*>(mask + g0));
+#pragma unroll
+      for (int k = 0; k < kRun; ++k)
+        bits |= ((((k < 4 ? q.x : q.y) >> (8 * (k % 4))) & 0xffu) != 0) << k;
+    } else {
+#pragma unroll
+      for (int k = 0; k < kRun; ++k) {
+        const long long g = g0 + k;
+        if (g >= lo && g < hi && __ldg(mask + g)) bits |= 1u << k;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      load_run(static_cast<const float*>(args.v[i]), args.width[i], full, g0,
+               lo, hi, x[i]);
+
+    const unsigned has = __ballot_sync(kFull, bits != 0);
+    const unsigned below = has & ((1u << lane) - 1u);
+    const int src = below ? 31 - __clz(below) : lane;
+    const int top = has ? 31 - __clz(has) : 0;
+
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const bool cplx = args.width[i] == 2;
+      if (cplx && args.conj[i]) {
+#pragma unroll
+        for (int k = 0; k < kRun; ++k) x[i][2 * k + 1] = -x[i][2 * k + 1];
+      }
+      // this run's last strong value, then the one before this run
+      float lr = 0.0f, li = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kRun; ++k) {
+        if (bits & (1u << k)) {
+          lr = cplx ? x[i][2 * k] : x[i][k];
+          li = cplx ? x[i][2 * k + 1] : 0.0f;
+        }
+      }
+      float pr = __shfl_sync(kFull, lr, src);
+      float pi = __shfl_sync(kFull, li, src);
+      if (!below) {
+        pr = carry[i][0];
+        pi = carry[i][1];
+      }
+      const float cr = __shfl_sync(kFull, lr, top);
+      const float ci = __shfl_sync(kFull, li, top);
+      if (has) {
+        carry[i][0] = cr;
+        carry[i][1] = ci;
+      }
+#pragma unroll
+      for (int k = 0; k < kRun; ++k) {
+        const bool strong = bits & (1u << k);
+        if (cplx) {
+          if (strong) {
+            pr = x[i][2 * k];
+            pi = x[i][2 * k + 1];
+          }
+          x[i][2 * k] = pr;
+          x[i][2 * k + 1] = pi;
+        } else {
+          if (strong) pr = x[i][k];
+          x[i][k] = pr;
+        }
+      }
+      store_run(static_cast<float*>(args.out[i]), args.width[i], full, g0, lo,
+                hi, x[i]);
+    }
+  }
+}
+
+bool aligned(const void* p, uintptr_t a) {
+  return reinterpret_cast<uintptr_t>(p) % a == 0;
 }
 
 }  // namespace
@@ -111,18 +218,30 @@ ffill_rows(const unsigned char* __restrict__ mask, int T, FillArgs args) {
 extern "C" int ffill_launch(const void* mask, int B, int T, int n_values,
                             const uint64_t* values, const uint64_t* outs,
                             const uint64_t* inits, const int* widths,
-                            void* stream) {
+                            const int* conjs, void* stream) {
   if (B <= 0 || T <= 0 || n_values < 1 || n_values > kMaxValues) return 1000;
   FillArgs args{};
+  bool vec = aligned(mask, kRun);
   for (int i = 0; i < n_values; ++i) {
     if (widths[i] != 1 && widths[i] != 2) return 1000;
+    if (conjs[i] && widths[i] != 2) return 1000;
     args.v[i] = reinterpret_cast<const void*>(values[i]);
     args.out[i] = reinterpret_cast<void*>(outs[i]);
     args.init[i] = reinterpret_cast<const void*>(inits[i]);
     args.width[i] = widths[i];
+    args.conj[i] = conjs[i];
+    vec = vec && aligned(args.v[i], 16) && aligned(args.out[i], 16);
   }
-  args.n_values = n_values;
-  ffill_rows<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned char*>(mask), T, args);
+  const unsigned blocks = (B + kWarps - 1) / kWarps;
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto* m = static_cast<const unsigned char*>(mask);
+#define FFILL_CASE(N)                                                    \
+  case N:                                                                \
+    ffill_rows<N><<<blocks, kWarps * 32, 0, st>>>(m, B, T, vec, args); \
+    break;
+  switch (n_values) {
+    FFILL_CASE(1) FFILL_CASE(2) FFILL_CASE(3) FFILL_CASE(4)
+  }
+#undef FFILL_CASE
   return static_cast<int>(cudaGetLastError());
 }

@@ -219,7 +219,9 @@ def fm_demod(
     min_ampl = (BLANK_RATIO ** 2) * avg_amp * avg_amp
     strong = sampsq > min_ampl[..., None]
 
-    ff_conj = forward_fill(torch.conj_physical(baseband), strong,
+    # a conj view: the fill's kernel negates the imaginary part as it reads,
+    # so no conjugated copy of the block is written
+    ff_conj = forward_fill(torch.conj(baseband.contiguous()), strong,
                            state.disc_state)
     prev_conj = torch.cat([state.disc_state[..., None], ff_conj[..., :-1]],
                           dim=-1)

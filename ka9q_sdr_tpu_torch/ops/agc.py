@@ -91,9 +91,10 @@ def agc_plain(gain: torch.Tensor, hang: torch.Tensor, level: torch.Tensor,
     headroom = _f32(params.headroom)
     recovery = _f32(params.recovery_factor)
     # a tensor numerator: torch computes `number / tensor` as a reciprocal
-    # times the number, which is not the correctly rounded quotient
-    headroom_t = torch.tensor(headroom, dtype=torch.float32,
-                              device=level.device)
+    # times the number, which is not the correctly rounded quotient (a fill,
+    # not a host-to-device copy, which would wait for the stream)
+    headroom_t = torch.full((), headroom, dtype=torch.float32,
+                            device=level.device)
     hangmax = torch.full_like(hang, params.hangmax)
     zero = torch.zeros_like(hang)
     out = torch.empty_like(level)

@@ -9,14 +9,17 @@ Two implementations of the same function:
 - ``fill_plain``: plain PyTorch (cummax of the valid index, then a gather
   and a select).  It runs for CPU tensors, and it is what the tests and
   ``chip_smoke.py`` hold the kernel against.
-- the Hopper kernel in ``csrc/ffill.cu`` (one thread block per row, a
-  block-wide max-scan of the last valid index carried across tiles).  It
-  replaces the TPU kernel ``_fill_pallas`` and runs for every CUDA tensor,
-  at every size.
+- the Hopper kernel in ``csrc/ffill.cu`` (one warp per row, runs of 8
+  positions per lane scanned in registers, joined by a ballot and a
+  shuffle, a carry across chunks).  It replaces the TPU kernel
+  ``_fill_pallas`` and runs for every CUDA tensor, at every size.
 
-Both only select, so both are exact.  ``forward_fill_multi`` checks its
+Both only select, so both are exact.  A complex value may be a conjugate
+view (``torch.conj`` of a contiguous tensor): the kernel negates the
+imaginary part as it reads, the plain version resolves the view, and both
+give what ``torch.conj_physical`` would.  ``forward_fill_multi`` checks its
 arguments the same way for both and raises on anything the kernel does not
-take: a dtype other than float32/complex64, non-contiguous or conjugate-view
+take: a dtype other than float32/complex64, non-contiguous or negative-view
 values, or shapes that differ from the mask.
 """
 
@@ -54,7 +57,8 @@ def fill_plain(values: tuple, mask: torch.Tensor, inits: tuple) -> tuple:
     src = idx.clamp(min=0)
     valid = idx >= 0
     return tuple(
-        torch.where(valid, torch.gather(v, -1, src), init[..., None])
+        torch.where(valid, torch.gather(v.resolve_conj(), -1, src),
+                    init[..., None])
         for v, init in zip(values, inits)
     )
 
@@ -72,6 +76,7 @@ def _fill_cuda(values: tuple, mask: torch.Tensor, inits: tuple) -> tuple:
                        ctypes.c_int, ctypes.POINTER(ctypes.c_uint64),
                        ctypes.POINTER(ctypes.c_uint64),
                        ctypes.POINTER(ctypes.c_uint64),
+                       ctypes.POINTER(ctypes.c_int),
                        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     T = mask.shape[-1]
     B = mask.numel() // T
@@ -85,6 +90,7 @@ def _fill_cuda(values: tuple, mask: torch.Tensor, inits: tuple) -> tuple:
             ptrs(*(o.data_ptr() for o in outs)),
             ptrs(*(i.data_ptr() for i in inits)),
             (ctypes.c_int * n)(*(_WIDTH[v.dtype] for v in values)),
+            (ctypes.c_int * n)(*(int(v.is_conj()) for v in values)),
             torch.cuda.current_stream(mask.device).cuda_stream,
         )
     if err != 0:
@@ -110,12 +116,12 @@ def _checked_inits(values: tuple, mask: torch.Tensor, inits: tuple) -> tuple:
                              f"{tuple(mask.shape)}")
         if v.device != mask.device:
             raise ValueError("values and mask must share one device")
-        if not v.is_contiguous() or v.is_conj():
-            raise ValueError("values must be contiguous, with no conj view")
+        if not v.is_contiguous() or v.is_neg():
+            raise ValueError("values must be contiguous, with no neg view")
         if isinstance(init, torch.Tensor) and init.device != mask.device:
             raise ValueError("inits must lie on the mask's device")
         init = torch.as_tensor(init, dtype=v.dtype, device=mask.device)
-        out.append(init.expand(lead).contiguous())
+        out.append(init.resolve_conj().expand(lead).contiguous())
     return tuple(out)
 
 

@@ -98,22 +98,24 @@ def set_osc(state: OscState, f: float, r: float = 0.0) -> OscState:
     )
 
 
-def set_osc_traced(state: OscState, f: torch.Tensor, r=0.0) -> OscState:
+def set_osc_traced(state: OscState, f: torch.Tensor,
+                   r: float = 0.0) -> OscState:
     """Retune from a device-side float32 frequency (the PLL's per-block
     set_osc calls, linear.c:198,234).
 
     Control-loop frequencies are small (|f| << 1), so the whole frequency
     lives in the float32 residual; the fixed-point word is zeroed.  Phase is
     preserved.  osc_advance folds the residual into the exact accumulator
-    every block."""
+    every block.  The sweep rate r is a host number, filled on the device:
+    a host-to-device copy of it would wait for the stream every block."""
     shape = state.phase.shape
-    f = torch.as_tensor(f, dtype=torch.float32, device=state.phase.device)
-    r = torch.as_tensor(r, dtype=torch.float32, device=state.phase.device)
+    dev = state.phase.device
+    f = torch.as_tensor(f, dtype=torch.float32, device=dev)
     return OscState(
         phase=state.phase,
         freq=torch.zeros_like(state.phase),
         freq_resid=f.expand(shape).clone(),
-        rate=r.expand(shape).clone(),
+        rate=torch.full(shape, r, dtype=torch.float32, device=dev),
         phase_resid=state.phase_resid,
     )
 

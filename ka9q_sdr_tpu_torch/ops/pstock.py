@@ -1,20 +1,27 @@
-"""Column FFT: radix-2 autosorting Stockham FFT along axis 0.
+"""Column FFT: autosorting Stockham FFT along axis 0.
 
 Port of ``ka9q_sdr_tpu.ops.pstock``, a closed TPU experiment: no path of
 either package calls it.  ``make_fft_cols(Q, P, CW)`` returns
 ``fft_cols(xr, xi) -> (yr, yi)``, the FFT along axis 0 of (Q, P) float32
 re/im planes.  Two implementations of the same function:
 
-- ``fft_cols_plain``: the TPU kernel's body (pstock.py:81-99) in plain
-  PyTorch over all P columns at once (the columns are independent, so the
-  slab width does not change the arithmetic).  It runs for CPU tensors, and
-  it is what the tests and ``chip_smoke.py`` hold the kernel against.
-- the Hopper kernel in ``csrc/pstock.cu`` (a column tile per thread block,
-  all stages in shared memory).  It runs for every CUDA tensor.
+- ``fft_cols_plain``: the TPU kernel's body (pstock.py:81-99, log2(Q)
+  radix-2 stages) in plain PyTorch over all P columns at once (the columns
+  are independent, so the slab width does not change the arithmetic).  It
+  runs for CPU tensors, and it is what the tests and ``chip_smoke.py`` hold
+  the kernel against.
+- the Hopper kernel in ``csrc/pstock.cu``: mixed-radix passes (radix 16 in
+  registers, the plan that ``radix_plan`` writes), split as Q = 16 (Q/16)
+  over a cluster of thread blocks that exchange the first pass's outputs
+  through distributed shared memory, twiddles from ``twiddle_table``.  The
+  kernel is compiled once per Q and derives its plan and tile from Q;
+  ``radix_plan`` is the same plan for the numpy model of its schedule
+  (``tests/test_torch_kernels.py``).  It runs for every CUDA tensor.
 
-The two round differently (the kernel's twiddles come from ``sincospif``
-of the exact ratio, the plain version's from float32 cos/sin of a rounded
-angle), so they agree to float32 FFT accuracy, not bit for bit.
+The two round differently (the kernel's twiddles are float64 values
+rounded to float32, the plain version's float32 cos/sin of a rounded
+angle, and the butterflies differ), so they agree to float32 FFT accuracy,
+not bit for bit.
 """
 
 from __future__ import annotations
@@ -29,9 +36,27 @@ __all__ = ["stockham_rows", "make_fft_cols", "fft_cols_plain"]
 #: Kernel launches so far (one per ``fft_cols`` call on CUDA tensors).
 launches = 0
 
-#: Largest Q one thread block's shared memory holds (kMaxElems in
-#: csrc/pstock.cu: 16384 complex float32 values, 128 KB).
+#: Largest Q the kernel takes (kMaxQ in csrc/pstock.cu).
 MAX_Q = 16384
+
+_twiddles: dict = {}     # (Q, device) -> complex64 table on that device
+
+
+def radix_plan(Q: int) -> list[int]:
+    """The kernel's radices (PlanOf in csrc/pstock.cu), first pass first:
+    16 while it divides, then one pass of 2, 4 or 8; Q itself below 16 (a
+    copy at Q = 1)."""
+    q = Q.bit_length() - 1
+    if Q < 1 or (1 << q) != Q:
+        raise ValueError(f"Q={Q} not a power of two")
+    if Q < 16:
+        return [Q]
+    return [16] * (q // 4) + ([1 << (q % 4)] if q % 4 else [])
+
+
+def twiddle_table(Q: int) -> np.ndarray:
+    """exp(-2 pi i t / Q) for t < Q: float64 cos/sin rounded to float32."""
+    return np.exp(-2j * np.pi * np.arange(Q) / Q).astype(np.complex64)
 
 
 def stockham_rows(x: torch.Tensor) -> torch.Tensor:
@@ -81,13 +106,17 @@ def _fft_cols_cuda(xr: torch.Tensor, xi: torch.Tensor):
     fn = _kernels.load("pstock").lib.pstock_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     Q, P = xr.shape
+    key = (Q, xr.device)
+    if key not in _twiddles:
+        _twiddles[key] = torch.as_tensor(twiddle_table(Q), device=xr.device)
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     with torch.cuda.device(xr.device):
         err = fn(xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-                 Q, P, torch.cuda.current_stream(xr.device).cuda_stream)
+                 _twiddles[key].data_ptr(), Q, P,
+                 torch.cuda.current_stream(xr.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"pstock kernel launch failed (error {err})")
     launches += 1
@@ -99,8 +128,8 @@ def make_fft_cols(Q: int, P: int, CW: int = 256):
     (Q, P) float32 re/im planes.
 
     CW is the JAX kernel's column-slab width; it is kept for the same
-    argument check (P % CW == 0).  The Hopper kernel picks its own column
-    tile from Q, and takes Q up to ``MAX_Q``."""
+    argument check (P % CW == 0).  The Hopper kernel chooses its own tile
+    for each Q, and takes Q up to ``MAX_Q``."""
     q = Q.bit_length() - 1
     if Q < 1 or (1 << q) != Q:
         raise ValueError(f"Q={Q} not a power of two")
@@ -109,6 +138,8 @@ def make_fft_cols(Q: int, P: int, CW: int = 256):
     if Q > MAX_Q:
         raise ValueError(f"Q={Q} does not fit one thread block's shared "
                          f"memory (at most {MAX_Q})")
+    if Q * P >= 1 << 31:
+        raise ValueError(f"Q*P={Q * P} overflows the kernel's 32-bit offsets")
 
     def fft_cols(xr: torch.Tensor, xi: torch.Tensor):
         for x in (xr, xi):

@@ -1,8 +1,10 @@
 """The kernel wrappers (forward fill, hang AGC, column FFT): their argument
-checks, which both implementations share, and on a card each Hopper kernel
-against its plain version: the fill and the AGC bit-exact (selects, and
-IEEE float32 steps with no a*b+c), the column FFT within 2e-6 of the
-spectrum's peak (twiddles rounded differently).
+checks, which both implementations share, numpy models of the fill's and
+the column FFT's schedules (the index arithmetic of csrc/ffill.cu and
+csrc/pstock.cu, checked here where no kernel can run), and on a card each
+Hopper kernel against its plain version: the fill and the AGC bit-exact
+(selects, and IEEE float32 steps with no a*b+c), the column FFT within 2e-6
+of the spectrum's peak (twiddles rounded differently).
 
 This file imports no jax, so it also runs where jax is not installed, as on
 the machine with the card (``tests/conftest.py`` configures jax, hence
@@ -23,7 +25,7 @@ torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "strided", "conj",
-                                 "mask_dtype", "too_many"])
+                                 "neg", "mask_dtype", "too_many"])
 def test_fill_rejects_what_the_kernel_does_not_take(bad):
     """Both implementations check their arguments alike, so a call that the
     kernel would refuse on the card fails on the CPU too."""
@@ -36,8 +38,11 @@ def test_fill_rejects_what_the_kernel_does_not_take(bad):
         values = (v[:, :8].contiguous(),)
     elif bad == "strided":
         values = (torch.zeros((4, 32), dtype=torch.complex64)[:, ::2],)
-    elif bad == "conj":
-        values = (torch.conj(v),)
+    elif bad == "conj":        # a conj view the kernel could not read in runs
+        values = (torch.conj(torch.zeros((4, 32), dtype=torch.complex64)
+                             [:, ::2]),)
+    elif bad == "neg":
+        values = (torch._neg_view(v.real.contiguous()),)
     elif bad == "mask_dtype":
         m = m.to(torch.uint8)
     elif bad == "too_many":
@@ -46,31 +51,150 @@ def test_fill_rejects_what_the_kernel_does_not_take(bad):
         TFF.forward_fill_multi(values, m, inits)
 
 
+def test_fill_takes_a_conj_view():
+    """A conj view of a contiguous complex value fills exactly as its
+    conj_physical copy does, beside a float value in the same call."""
+    rng = np.random.default_rng(5)
+    c = torch.as_tensor((rng.standard_normal((6, 40)) + 1j
+                         * rng.standard_normal((6, 40))).astype(np.complex64))
+    v = torch.as_tensor(rng.standard_normal((6, 40)).astype(np.float32))
+    m = torch.as_tensor(rng.random((6, 40)) < 0.5)
+    m[0] = False
+    ic = torch.as_tensor(np.full(6, 0.5 - 2j, np.complex64))
+    got = TFF.forward_fill_multi((torch.conj(c), v), m, (ic, 1.0))
+    want = TFF.forward_fill_multi((torch.conj_physical(c), v), m, (ic, 1.0))
+    assert not got[0].is_conj()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(got[0][0], ic[0].expand(40))      # all weak: the init
+
+
+_LANES, _RUN = 32, 8
+
+
+def _fill_schedule(values, conjs, mask, inits):
+    """csrc/ffill.cu's schedule in numpy: flat runs of 8 positions aligned
+    to the arrays' start, a warp of 32 runs per chunk along each row, the
+    nearest earlier lane with a strong position (the ballot) or the carry
+    for a run's weak head."""
+    B, T = mask.shape
+    flat_m = mask.reshape(-1)
+    flat_v = [np.conj(v).reshape(-1) if cj else v.reshape(-1)
+              for v, cj in zip(values, conjs)]
+    outs = [np.zeros_like(f) for f in flat_v]
+    for row in range(B):
+        lo, hi = row * T, row * T + T
+        carry = [init[row] for init in inits]
+        r0 = lo // _RUN
+        while r0 * _RUN < hi:
+            runs = [[g for g in range((r0 + lane) * _RUN,
+                                      (r0 + lane + 1) * _RUN) if lo <= g < hi]
+                    for lane in range(_LANES)]
+            strong = [[g for g in run if flat_m[g]] for run in runs]
+            has = [bool(st) for st in strong]
+            for i, f in enumerate(flat_v):
+                last = [f[st[-1]] if st else None for st in strong]
+                for lane, run in enumerate(runs):
+                    below = [j for j in range(lane) if has[j]]
+                    prev = last[below[-1]] if below else carry[i]
+                    for g in run:
+                        if flat_m[g]:
+                            prev = f[g]
+                        outs[i][g] = prev
+                if any(has):
+                    carry[i] = last[max(j for j in range(_LANES) if has[j])]
+            r0 += _LANES
+    return [o.reshape(B, T) for o in outs]
+
+
+def _fill_rows(B, T, seed):
+    """A mask with random rows and rows that are all weak, all strong, or
+    strong only at the last position."""
+    rng = np.random.default_rng(seed)
+    m = rng.random((B, T)) < 0.3
+    m[0::4] = False
+    m[1::4] = True
+    m[2::4] = False
+    m[2::4, -1] = True
+    return m
+
+
+@pytest.mark.parametrize("T", [1, 7, 8, 9, 31, 33, 255, 257, 1025])
+def test_fill_schedule_matches_plain(T):
+    """The kernel's index schedule, run in numpy, against the plain version
+    for a float, a complex and a conj-view value, at ragged T (rows start
+    anywhere inside a run)."""
+    B = 7
+    rng = np.random.default_rng(T)
+    m = _fill_rows(B, T, T)
+    v = rng.standard_normal((B, T)).astype(np.float32)
+    c = (rng.standard_normal((B, T))
+         + 1j * rng.standard_normal((B, T))).astype(np.complex64)
+    iv = rng.standard_normal(B).astype(np.float32)
+    ic = (rng.standard_normal(B) + 1j * rng.standard_normal(B)).astype(
+        np.complex64)
+    got = _fill_schedule((v, c, c), (False, False, True), m, (iv, ic, ic))
+    tc = torch.as_tensor(c)
+    want = TFF.forward_fill_multi(
+        (torch.as_tensor(v), tc, torch.conj(tc)), torch.as_tensor(m),
+        (torch.as_tensor(iv), torch.as_tensor(ic), torch.as_tensor(ic)))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+    (got,) = _fill_schedule((v,), (False,), m, (iv,))       # float only
+    np.testing.assert_array_equal(got, want[0].numpy())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T", [(64, 256), (7, 100), (130, 391), (4096, 960)])
+@pytest.mark.parametrize("B", [1, 7, 130, 3072, 4096])
+@pytest.mark.parametrize("T", [1, 7, 8, 9, 31, 33, 255, 257, 960, 1025,
+                               7104])
 def test_ffill_kernel_matches_plain_on_card(B, T):
-    """One launch fills a float and a complex value sharing a mask, with
-    every fifth row all weak (those take their init)."""
+    """One launch fills a float, a complex and a conj-view value sharing a
+    mask with all-weak, all-strong and last-only rows (the all-weak rows
+    take their init)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(3)
     v = rng.standard_normal((B, T)).astype(np.float32)
     c = (rng.standard_normal((B, T))
          + 1j * rng.standard_normal((B, T))).astype(np.complex64)
-    m = rng.random((B, T)) < 0.6
-    m[::5] = False
+    m = _fill_rows(B, T, B + T)
     iv = rng.standard_normal(B).astype(np.float32)
     ic = (rng.standard_normal(B)
           + 1j * rng.standard_normal(B)).astype(np.complex64)
     v, c, m, iv, ic = (torch.as_tensor(a, device="cuda")
                        for a in (v, c, m, iv, ic))
+    values, inits = (v, c, torch.conj(c)), (iv, ic, ic)
     before = TFF.launches
-    got = TFF.forward_fill_multi((v, c), m, (iv, ic))
-    want = TFF.fill_plain((v, c), m, (iv, ic))
+    got = TFF.forward_fill_multi(values, m, inits)
+    want = TFF.fill_plain(values, m, inits)
     torch.cuda.synchronize()
     assert TFF.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [7, 960])
+def test_ffill_kernel_on_offset_views_on_card(T):
+    """Rows 1.. of larger tensors: at odd T the mask and values start off
+    their 8- and 16-byte alignment, and every run goes position by
+    position."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(T)
+    B = 65
+    c = torch.randn((B + 1, T), generator=g, device="cuda",
+                    dtype=torch.complex64)[1:]
+    v = torch.randn((B + 1, T), generator=g, device="cuda")[1:]
+    m = (torch.rand((B + 1, T), generator=g, device="cuda") < 0.5)[1:]
+    init = torch.zeros((B,), device="cuda")
+    ic = torch.zeros((B,), device="cuda", dtype=torch.complex64)
+    got = TFF.forward_fill_multi((v, torch.conj(c)), m, (init, ic))
+    want = TFF.fill_plain((v, torch.conj(c)), m, (init, ic))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "gain_shape", "hang_dtype",
@@ -139,19 +263,83 @@ def test_agc_kernel_matches_plain_on_card(B, T):
         assert torch.equal(st.gain, g) and torch.equal(st.hangcount, h)
 
 
+_ALL_Q = [1 << k for k in range(1, 15)]          # 2 .. MAX_Q = 16384
+_RAGGED_P = 389      # 3 tiles of 128 columns + 5, 24 of 16 + 5, 48 of 8 + 5
+
+
+def _dft_regs(a):
+    """csrc/pstock.cu's in-register dft<R> on axis 0 of a complex64 array:
+    the radix-2 autosorting Stockham recurrence with W16 constants in
+    float32, natural order out."""
+    r = a.shape[0]
+    w16 = np.exp(-2j * np.pi * np.arange(16) / 16).astype(np.complex64)
+    n, s = r, 1
+    while n >= 2:
+        m = n // 2
+        y = np.empty_like(a)
+        for p in range(m):
+            for j in range(s):
+                x0, x1 = a[p * s + j], a[(p + m) * s + j]
+                y[2 * p * s + j] = x0 + x1
+                y[(2 * p + 1) * s + j] = (x0 - x1) * w16[p * (16 // n)]
+        a, n, s = y, m, 2 * s
+    return a
+
+
+def _stockham_schedule(x, plan, table):
+    """csrc/pstock.cu's passes in numpy: butterfly b = p s + j reads
+    x[q Q/r + b], q < r, and writes its twiddled DFT to y[(p r + k) s + j]."""
+    Q = x.shape[0]
+    y, s = x.astype(np.complex64), 1
+    for n, r in enumerate(plan):
+        b = np.arange(Q // r)
+        p, j = b // s, b % s
+        k = np.arange(r)[:, None]
+        out = _dft_regs(y[k * (Q // r) + b])
+        if n < len(plan) - 1:      # the table at p s 2^m, multiplied
+            w = np.ones((r, len(b)), np.complex64)
+            for bit in range(r.bit_length() - 1):
+                on = (np.arange(r) >> bit) & 1 == 1
+                w[on] *= table[(p * s) << bit]
+            out = out * w[..., None]
+        new = np.empty_like(y)
+        new[(p * r + k) * s + j] = out
+        y, s = new, s * r
+    return y
+
+
+@pytest.mark.parametrize("Q", _ALL_Q)
+def test_stockham_schedule_matches_numpy(Q):
+    """The wrapper's radix plan and twiddle table, run through the kernel's
+    index schedule in numpy, give np.fft.fft along axis 0."""
+    plan = TP.radix_plan(Q)
+    assert np.prod(plan) == Q and all(r in (2, 4, 8, 16) for r in plan)
+    assert plan[:-1] == [16] * (len(plan) - 1)
+    table = TP.twiddle_table(Q)
+    assert table.dtype == np.complex64 and table.shape == (Q,)
+    rng = np.random.default_rng(Q)
+    x = (rng.standard_normal((Q, 3))
+         + 1j * rng.standard_normal((Q, 3))).astype(np.complex64)
+    got = _stockham_schedule(x, plan, table)
+    want = np.fft.fft(x.astype(np.complex128), axis=0)
+    assert np.abs(got - want).max() / np.abs(want).max() < 2e-6
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("Q,P,CW", [(256, 512, 128), (4096, 256, 256),
-                                    (1024, 96, 32), (16384, 8, 8)])
-def test_fft_cols_kernel_matches_plain_on_card(Q, P, CW):
+@pytest.mark.parametrize("Q", [1] + _ALL_Q)
+def test_fft_cols_kernel_matches_plain_on_card(Q):
+    """Every Q the kernel takes, at a P that is no multiple of any tile
+    (8, 16 or 128 columns), so the last tile is ragged."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    P = _RAGGED_P
     rng = np.random.default_rng(Q + P)
     x = (rng.standard_normal((Q, P))
          + 1j * rng.standard_normal((Q, P))).astype(np.complex64)
     xr = torch.as_tensor(np.ascontiguousarray(x.real), device="cuda")
     xi = torch.as_tensor(np.ascontiguousarray(x.imag), device="cuda")
     before = TP.launches
-    yr, yi = TP.make_fft_cols(Q, P, CW)(xr, xi)
+    yr, yi = TP.make_fft_cols(Q, P, P)(xr, xi)
     pr, pi = TP.fft_cols_plain(xr, xi)
     torch.cuda.synchronize()
     assert TP.launches == before + 1
