@@ -10,9 +10,10 @@ It builds the hand-written CUDA kernels from ``ka9q_sdr_tpu_torch/csrc``
 PyTorch version: the FM forward fill (float, complex and conjugate-view
 values) and the hang AGC bit for bit, the column Stockham FFT within 2e-6
 for every Q from 1 to 16384 (and against numpy).  It times each at the
-main path's shapes beside its bound (bytes over 3.35 TB/s) and, for the
-column FFT, beside cuFFT.  Then it drives the channel bank through its
-user entry points:
+main path's shapes beside its bound (bytes over 3.35 TB/s), the AGC also
+beside its chain floor (its walk's measured cycles per sample at the SM
+clock nvidia-smi reports), and the column FFT beside cuFFT.  Then it
+drives the channel bank through its user entry points:
 
 - the FM+PL bank (the path ``bench.py`` measures and ``apps/bankd.py``
   serves) at the 4096-channel 20 ms serving geometry and at the
@@ -37,7 +38,8 @@ Times come from CUDA events.  Phases print their
 findings line by line.
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Any failed check makes the exit code 1
-and suppresses both JSON lines; no CUDA device means exit code 2.
+and suppresses both JSON lines; no CUDA device means exit code 2, and a
+directory without the port beside the script exit code 3.
 """
 
 import json
@@ -63,8 +65,8 @@ LONG_SIGNAL = (11, 4096, 8000)
 SEED = 20241016
 DEV = "cuda"
 #: H100 SXM peaks (NVIDIA's data sheet, at 700 W): device memory rate and
-#: float32 rate outside the tensor cores; and its boost clock, which sets
-#: how long torch.cuda._sleep spins per cycle
+#: float32 rate outside the tensor cores; and its boost clock, used only to
+#: size torch.cuda._sleep spins (phase 3 reads the clock it reports)
 HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
 CLOCK_HZ = 1.98e9
 #: CAM (PLL) bank at the serving geometry: lock comes 90-150 blocks in (35
@@ -472,9 +474,38 @@ def _agc_case(B, T, g):
     return lev.contiguous(), gain, hang
 
 
+def sm_clock_hz():
+    """The SM clock under load: nvidia-smi's clocks.sm, read while a spin
+    kernel holds the card (an idle card reports its idle clock)."""
+    torch.cuda._sleep(int(1.5 * CLOCK_HZ))
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True)
+    torch.cuda.synchronize()
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+#: phase 3's timed AGC shapes and calls per timing: the CAM bank, the long
+#: block, a MultiBank group and the receiver's one row
+AGC_TIMED = ((4096, 960, 20), (8192, 7104, 5), (512, 960, 20), (1, 960, 20))
+
+
+def agc_walk_cycles(agc, p, clock_hz, g):
+    """Cycles per sample of the kernel's walk, the slope of one block's
+    warm device time (32 channels, alone on the card) from T = 1024 to
+    8192: the dependent path per step as the kernel runs it, with the
+    per-tile waits, and without the launch and the ring's fill."""
+    t = {}
+    for T in (1024, 8192):
+        lev, gain, hang = _agc_case(32, T, g)
+        st = agc.AGCState(gain, hang)
+        t[T] = device_ms(lambda: agc.agc_block(st, lev, p), 20)
+    return (t[8192] - t[1024]) * 1e-3 * clock_hz / (8192 - 1024)
+
+
 def phase_agc(agc):
-    """AGC kernel against its plain loop: bit-equal, timed at the bank's
-    shapes."""
+    """AGC kernel against its plain loop: bit-equal, timed at the main
+    paths' shapes beside the bytes bound and the walk's chain floor."""
     print("phase 3: AGC kernel against its plain version", flush=True)
     g = torch.Generator(device=DEV).manual_seed(SEED + 1)
     params = {
@@ -485,8 +516,11 @@ def phase_agc(agc):
                                                      1 / 48e3),
     }
     max_err = 0.0
-    for B, T in ((4096, 960), (8192, 7104), (7, 100), (130, 391)):
-        lev, gain, hang = _agc_case(B, T, g)
+    for B, T in ((4096, 960), (8192, 7104), (7, 100), (130, 391), (512, 960),
+                 (1, 960), (45, 961)):
+        lev, gain, hang = _agc_case(B + (B == 45), T, g)
+        if B == 45:           # rows 1.. at odd T: a view off 16-byte rows
+            lev, gain, hang = lev[1:], gain[1:], hang[1:]
         for label, p in params.items():
             if B == 8192 and label.startswith("CW"):
                 continue                  # the plain loop is slow here
@@ -503,10 +537,16 @@ def phase_agc(agc):
                 max_err = max(max_err, float((got - want)[fin].abs().max()))
             check(same, f"AGC kernel == plain at ({B}, {T}), {label} "
                   f"({int(torch.isinf(got).sum())} inf, "
-                  f"{int((st.hangcount > 0).sum())} rows hanging)")
+                  f"{int((st.hangcount > 0).sum())} rows hanging)"
+                  f"{' (offset view)' if B == 45 else ''}")
     times = {}
     p = params["linear (hangmax 52800)"]
-    for B, T, iters in ((4096, 960, 20), (8192, 7104, 5)):
+    clock = sm_clock_hz()
+    walk = agc_walk_cycles(agc, p, clock, g)
+    print(f"  SM clock under load {clock / 1e6:.0f} MHz (nvidia-smi); the "
+          f"walk takes {walk:.2f} cycles per sample (one block, slope from "
+          f"T = 1024 to 8192)", flush=True)
+    for B, T, iters in AGC_TIMED:
         lev, gain, hang = _agc_case(B, T, g)
         st = agc.AGCState(gain, hang)
         kern = cuda_ms(lambda: agc.agc_block(st, lev, p), iters)
@@ -519,14 +559,16 @@ def phase_agc(agc):
                           cold=True)
         # levels in, gains out, gain and hang count in and out
         bound, _ = bound_ms(B * T * 8 + B * 16)
+        chain = T * walk / clock * 1e3
         times[(B, T)] = (dev_k, plain, bound)
-        cycles = dev_k * 1e-3 * CLOCK_HZ / T
         print(f"  time ({B}, {T}): kernel {kern:.4f}/{kern2:.4f} ms, plain "
               f"loop {plain:.2f} ms ({T} steps) (CUDA events); device only:"
               f" kernel {warm:.4f} ms warm, {dev_k:.4f} ms cold L2 "
-              f"(~{cycles:.0f} cycles per sample at 1.98 GHz); bound "
-              f"{bound:.4f} ms, kernel (cold) at {bound / dev_k:.0%} of it",
-              flush=True)
+              f"({dev_k * 1e-3 * clock / T:.1f} cycles per sample); bytes "
+              f"bound {bound:.4f} ms, chain floor {chain:.4f} ms, so bound by "
+              f"{'bytes' if bound >= chain else 'the chain'}; kernel (cold) "
+              f"at {bound / dev_k:.0%} of the bytes bound, "
+              f"{chain / dev_k:.0%} of the chain floor", flush=True)
     return max_err, times
 
 
@@ -1190,13 +1232,18 @@ def main():
         print("chip_smoke: no CUDA device; this run needs one GPU",
               file=sys.stderr)
         return 2
-    from ka9q_sdr_tpu_torch import interop
-    from ka9q_sdr_tpu_torch.io import modulate
-    from ka9q_sdr_tpu_torch.models import bank as bank_mod
-    from ka9q_sdr_tpu_torch.models import receiver
-    from ka9q_sdr_tpu_torch.models.demod_fm import _pl_measure
-    from ka9q_sdr_tpu_torch.models.demod_linear import _acquire
-    from ka9q_sdr_tpu_torch.ops import _kernels, agc, ffill, pstock
+    try:
+        from ka9q_sdr_tpu_torch import interop
+        from ka9q_sdr_tpu_torch.io import modulate
+        from ka9q_sdr_tpu_torch.models import bank as bank_mod
+        from ka9q_sdr_tpu_torch.models import receiver
+        from ka9q_sdr_tpu_torch.models.demod_fm import _pl_measure
+        from ka9q_sdr_tpu_torch.models.demod_linear import _acquire
+        from ka9q_sdr_tpu_torch.ops import _kernels, agc, ffill, pstock
+    except ModuleNotFoundError as e:
+        print(f"chip_smoke: the port is not importable ({e}); run this "
+              "script from the root of a checkout", file=sys.stderr)
+        return 3
 
     print("phase 1: environment", flush=True)
     smi = nvidia_smi()
@@ -1214,7 +1261,7 @@ def main():
         kernel = name
         for line in kl.log.splitlines():
             m = re.search(r"Function properties for \S*?"
-                          r"(ffill_rows|agc_rows|fft_cols_small|fft_cols)"
+                          r"(ffill_rows|agc_ring|fft_cols_small|fft_cols)"
                           r"(?:ILi(\d+)E)?", line)
             if m:
                 kernel = m[1] + (f"<{m[2]}>" if m[2] else "")

@@ -14,12 +14,16 @@ implementations of ``agc_block``:
   operations in the same order as the JAX package's scan step.  It runs for
   CPU tensors, and it is what the tests and ``chip_smoke.py`` hold the
   kernel against.
-- the Hopper kernel in ``csrc/agc.cu`` (one thread per channel running the
-  recurrence in registers).  It runs for every CUDA tensor, at every size.
+- the Hopper kernel in ``csrc/agc.cu``: one walker lane per channel runs
+  the recurrence in registers over fully unrolled tiles of 32 samples,
+  while two helper warps per 32 channels stream the levels in through an
+  asynchronous ring in shared memory, divide the clamps ahead of the walk
+  and store the gains.  It runs for every CUDA tensor, at every size.
 
-Both are IEEE float32 with no fused multiply-add in the step, so they agree
-bit for bit.  ``agc_block`` checks its arguments the same way for both and
-raises on anything the kernel does not take.
+Both are IEEE float32 with no fused multiply-add in the step, and the
+clamp is the same correctly rounded quotient wherever it is computed, so
+they agree bit for bit.  ``agc_block`` checks its arguments the same way
+for both and raises on anything the kernel does not take.
 """
 
 from __future__ import annotations

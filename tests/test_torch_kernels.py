@@ -1,7 +1,8 @@
 """The kernel wrappers (forward fill, hang AGC, column FFT): their argument
-checks, which both implementations share, numpy models of the fill's and
-the column FFT's schedules (the index arithmetic of csrc/ffill.cu and
-csrc/pstock.cu, checked here where no kernel can run), and on a card each
+checks, which both implementations share, numpy models of the three
+kernels' schedules (the index arithmetic of csrc/ffill.cu and
+csrc/pstock.cu, the tiles and ring of csrc/agc.cu, checked here where no
+kernel can run), and on a card each
 Hopper kernel against its plain version: the fill and the AGC bit-exact
 (selects, and IEEE float32 steps with no a*b+c), the column FFT within 2e-6
 of the spectrum's peak (twiddles rounded differently).
@@ -244,23 +245,154 @@ def _agc_case(B, T, seed):
     return lev, gain, hang
 
 
+#: the AM (hangmax 0), linear (52800) and CW (9600) parameters at 48 kHz
+_AGC_MODES = (TA.AGCParams.from_mode(-15.0, 50.0, 0.0, 1 / 48000),
+              TA.AGCParams.from_mode(-15.0, 6.0, 1.1, 1 / 48000),
+              TA.AGCParams.from_mode(-15.0, 20.0, 0.2, 1 / 48000))
+
+#: csrc/agc.cu's tile of samples, channels per block, ring stages and tiles
+#: loaded ahead
+_AGC_S, _AGC_LANES, _AGC_STAGES, _AGC_AHEAD = 64, 32, 4, 2
+
+
+def _agc_schedule(lev, gain, hang, params):
+    """csrc/agc.cu's schedule in numpy: blocks of 32 channels (dead lanes
+    read 1.0 and write nothing), tiles of S samples through a ring of
+    stages, each tile's clamps divided when it lands, before the walker
+    reaches it; the walker walks whole tiles, then a masked last tile that
+    keeps the carry past the row's end; a stage is refilled only after its
+    tile was walked and stored (asserted, as the mbarriers enforce it)."""
+    S, L, NST = _AGC_S, _AGC_LANES, _AGC_STAGES
+    headroom = np.float32(params.headroom)
+    recovery = np.float32(params.recovery_factor)
+    hangmax = np.int32(params.hangmax)
+    B, T = lev.shape
+    ntiles = -(-T // S)
+    out = np.full((B, T), -1.0, np.float32)
+    g_out, h_out = np.empty(B, np.float32), np.empty(B, np.int32)
+    for b0 in range(0, B, L):
+        rows = min(L, B - b0)
+        ring = {name: np.full((NST, L, S), np.nan, np.float32)
+                for name in ("lev", "clamp", "gain")}
+        full, walked = [None] * NST, [None] * NST
+        g = np.zeros(L, np.float32)
+        h = np.zeros(L, np.int32)
+        g[:rows], h[:rows] = gain[b0:b0 + rows], hang[b0:b0 + rows]
+        walker = [0]                     # the next tile the walker takes
+
+        def load(k):
+            assert walked[k % NST] in (None, k - NST)
+            tile = np.ones((L, S), np.float32)
+            n = min(S, T - k * S)
+            tile[:rows, :n] = lev[b0:b0 + rows, k * S:k * S + n]
+            ring["lev"][k % NST] = tile
+
+        def walk_to(k):
+            nonlocal g, h
+            while walker[0] <= k:
+                j = walker[0]
+                s = j % NST
+                assert full[s] == j, "the walker would wait forever"
+                n = min(S, T - j * S)
+                for i in range(S):
+                    lv, cl = ring["lev"][s, :, i], ring["clamp"][s, :, i]
+                    over = lv * g > headroom
+                    bad = np.isnan(g)
+                    ng = np.where(bad | over, cl,
+                                  np.where(h > 0, g, g * recovery))
+                    nh = np.where(over & ~bad, hangmax,
+                                  np.maximum(h - 1, 0)).astype(np.int32)
+                    if i < n:                # the masked walk keeps the carry
+                        g, h = ng, nh
+                    ring["gain"][s, :, i] = g
+                walked[s] = j
+                walker[0] += 1
+
+        def store(k):
+            walk_to(k)
+            n = min(S, T - k * S)
+            out[b0:b0 + rows, k * S:k * S + n] = \
+                ring["gain"][k % NST, :rows, :n]
+
+        with np.errstate(all="ignore"):
+            for k in range(min(_AGC_AHEAD, ntiles)):
+                load(k)
+            for k in range(ntiles):
+                nxt = k + _AGC_AHEAD
+                if nxt < ntiles:
+                    if nxt >= NST:
+                        store(nxt - NST)
+                    load(nxt)
+                ring["clamp"][k % NST] = headroom / ring["lev"][k % NST]
+                full[k % NST] = k
+            for k in range(max(0, ntiles - NST), ntiles):
+                store(k)
+        g_out[b0:b0 + rows], h_out[b0:b0 + rows] = g[:rows], h[:rows]
+    return out, g_out, h_out
+
+
+@pytest.mark.parametrize("B", [1, 7, 33, 130])
+@pytest.mark.parametrize("T", sorted({1, 7, 31, _AGC_S - 1, _AGC_S,
+                                      _AGC_S + 1, 391, 960, 1025}))
+def test_agc_schedule_matches_plain(B, T):
+    """The kernel's schedule, run in numpy, bit-equal to the plain loop:
+    zero levels (inf clamps), NaN gains at entry, and hang counts that cross
+    tile and stage boundaries under the AM, linear and CW parameters and a
+    hang of 45 samples that expires inside the block."""
+    lev, gain, hang = _agc_case(B, T, seed=B * T)
+    short = TA.AGCParams(_AGC_MODES[1].headroom,
+                         _AGC_MODES[1].recovery_factor, 45)
+    for params in _AGC_MODES + (short,):
+        got, g, h = _agc_schedule(lev, gain, hang, params)
+        want, wg, wh = TA.agc_plain(torch.as_tensor(gain),
+                                    torch.as_tensor(hang),
+                                    torch.as_tensor(lev), params)
+        np.testing.assert_array_equal(got, want.numpy())
+        np.testing.assert_array_equal(g, wg.numpy())
+        np.testing.assert_array_equal(h, wh.numpy())
+
+
+def _agc_kernel_matches_plain(lev, gain, hang, params):
+    before = TA.launches
+    st, got = TA.agc_block(TA.AGCState(gain, hang), lev, params)
+    want, g, h = TA.agc_plain(gain, hang, lev, params)
+    torch.cuda.synchronize()
+    assert TA.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(st.gain, g) and torch.equal(st.hangcount, h)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T", [(64, 256), (7, 100), (130, 391),
-                                 (4096, 960)])
+                                 (4096, 960), (1, 960), (512, 960),
+                                 (8192, 7104)])
 def test_agc_kernel_matches_plain_on_card(B, T):
+    """Every shape under the AM and CW parameters; all but the largest
+    under the linear ones too."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     lev, gain, hang = (torch.as_tensor(a, device="cuda")
                        for a in _agc_case(B, T, seed=T))
-    for params in (TA.AGCParams.from_mode(-15.0, 50.0, 0.0, 1 / 48000),
-                   TA.AGCParams.from_mode(-15.0, 6.0, 1.1, 1 / 48000)):
-        before = TA.launches
-        st, got = TA.agc_block(TA.AGCState(gain, hang), lev, params)
-        want, g, h = TA.agc_plain(gain, hang, lev, params)
-        torch.cuda.synchronize()
-        assert TA.launches == before + 1
-        assert torch.equal(got, want)
-        assert torch.equal(st.gain, g) and torch.equal(st.hangcount, h)
+    for params in _AGC_MODES:
+        if B * T > 1 << 24 and params is _AGC_MODES[1]:
+            continue                  # the plain loop is slow there
+        _agc_kernel_matches_plain(lev, gain, hang, params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [7, 391, 961])
+def test_agc_kernel_on_offset_view_on_card(T):
+    """Rows 1.. of a larger tensor at odd T: a contiguous view with a
+    storage offset, whose rows start off any 16-byte boundary."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    B = 45
+    lev, gain, hang = _agc_case(B + 1, T, seed=T + 1)
+    lev = torch.as_tensor(lev, device="cuda")[1:]
+    assert lev.is_contiguous() and lev.storage_offset() == T
+    gain, hang = (torch.as_tensor(a[1:], device="cuda") for a in (gain, hang))
+    for params in _AGC_MODES:
+        _agc_kernel_matches_plain(lev, gain, hang, params)
 
 
 _ALL_Q = [1 << k for k in range(1, 15)]          # 2 .. MAX_Q = 16384
