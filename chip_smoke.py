@@ -32,7 +32,15 @@ drives the channel bank through its user entry points:
 - the single receiver at the reference ``radio`` defaults (192 kHz) in FM,
   AM, USB, LSB and CAM, fed numpy FM or the port's test modulator on the
   card, card against CPU, with mid-stream retune, filter and mode edits;
-  the receiver behind a 24.576 Msps front end; and a 10 s offline replay.
+  the receiver behind a 24.576 Msps front end; and a 10 s offline replay;
+- the serving daemons through their ``main()``: ``bankd --iq-file`` at the
+  4096-channel FM serving geometry and ``bankd --channel-file`` at the
+  first mixed row with a live RADIO_MODE migration, each bit-equal to the
+  bank driven directly; ``bankd -I`` at 512 channels fed over 127.0.0.1 by
+  the native sender at the wire rate; and ``radio`` at its defaults in FM,
+  AM and USB, bit-equal to the receiver, with its status packet.  The
+  daemons' per-block wall time and its split (KA9Q_BANKD_TIMING) print
+  beside the card's name and power limit.
 
 Times come from CUDA events.  Phases print their
 findings line by line.
@@ -42,10 +50,16 @@ and suppresses both JSON lines; no CUDA device means exit code 2, and a
 directory without the port beside the script exit code 3.
 """
 
+import contextlib
 import json
+import os
 import re
+import shutil
+import socket
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -90,6 +104,17 @@ MIXED_CAM_SIG = {7: 37, 400: -56}
 #: receiver blocks per mode at 192 kHz (20 ms each); CAM passes its first
 #: acquisition at block 35
 RX_BLOCKS = {"FM": 25, "AM": 25, "USB": 25, "LSB": 25, "CAM": 80}
+#: the daemons (phases 18-21): blocks of each --iq-file run, the block
+#: before which the mixed-mode daemon gets its RADIO_MODE command, and the
+#: FM channel (SSRC = index + 1) that it moves into the USB group
+DAEMON_BLOCKS, MIGRATE_AT, MIGRATE_CH = 8, 4, 700
+#: the live path at README's deployment line: 512 FM channels at 24.576
+#: Msps, the 64 loudest served, blocks to run; FM carriers on LIVE_SIG
+LIVE = dict(samprate=24576000, channels=512, max_active=64, blocks=150)
+LIVE_SIG = (3, 100, 257, 400, 511)
+#: how long phase 20 waits for the live daemon to serve its blocks
+DAEMON_WAIT_S = 30.0
+RADIO_BLOCKS = 25
 
 
 def check(cond, what):
@@ -1227,6 +1252,376 @@ def phase_offline(receiver, agc):
           "(host clock, synchronised)", flush=True)
 
 
+class _Tee:
+    """A stream that keeps what is written through it and passes it on."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def daemon_flags():
+    """--cpu where the script is rehearsed on the CPU (DEV = "cpu")."""
+    return ["--cpu"] if DEV == "cpu" else []
+
+
+def run_daemon(fn):
+    """fn() (a daemon's main) with KA9Q_BANKD_TIMING=1 and its stderr kept.
+    Returns (its result, its stderr, wall seconds)."""
+    tee = _Tee(sys.stderr)
+    old = os.environ.get("KA9Q_BANKD_TIMING")
+    os.environ["KA9Q_BANKD_TIMING"] = "1"
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(tee):
+            rc = fn()
+    finally:
+        if old is None:
+            del os.environ["KA9Q_BANKD_TIMING"]
+        else:
+            os.environ["KA9Q_BANKD_TIMING"] = old
+    return rc, "".join(tee.parts), time.perf_counter() - t0
+
+
+def timing_split(err):
+    """The last `bankd timing:` line of a run's stderr as {phase: ms per
+    block}, with its block count under "blocks"; None if there is none."""
+    lines = [ln for ln in err.splitlines() if ln.startswith("bankd timing:")]
+    if not lines:
+        return None
+    split = {k: float(v) for k, v in re.findall(r"(\w+) (\d+\.\d+)",
+                                                 lines[-1])}
+    split["blocks"] = int(re.search(r"\((\d+) blocks\)", lines[-1])[1])
+    return split
+
+
+def print_split(label, split, smi):
+    parts = ", ".join(f"{k} {split[k]:.3f}" for k in
+                      ("read", "poll", "step", "copy", "wait", "emit",
+                       "status"))
+    print(f"  {label}: {split['total']:.3f} ms/block wall over "
+          f"{split['blocks']} blocks ({parts} ms) [{smi}]", flush=True)
+
+
+def free_ports(n):
+    """A base port with `n` free UDP ports above it on 127.0.0.1."""
+    while True:
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+            s.bind(("127.0.0.1", 0))
+            base = s.getsockname()[1]
+        if base + n > 65535:
+            continue
+        try:
+            socks = []
+            for p in range(base, base + n):
+                socks.append(socket.socket(socket.AF_INET, socket.SOCK_DGRAM))
+                socks[-1].bind(("127.0.0.1", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+
+
+def record(path, blocks, samprate, io_mod):
+    """An s16le I/Q recording of `blocks` ((L, 2) int16 tensors), with the
+    sample rate in its metadata."""
+    with open(path, "wb") as f:
+        for x in blocks:
+            f.write(x.cpu().numpy().tobytes())
+    io_mod.write_metadata(path, {"samplerate": str(int(samprate)),
+                                 "frequency": "0.0"})
+
+
+def raw_pcm(audio):
+    """bankd's --pcm-raw bytes of one block's float audio."""
+    a = audio.cpu().numpy()
+    return np.clip(a * 32767, -32768, 32767).astype("<i2").tobytes()
+
+
+def phase_bankd_file(bankd, bank_mod, io_mod, ffill, smi, tmp):
+    """bankd --iq-file --pcm-raw with 4096 FM channels at 393.216 Msps,
+    against ChannelBank.process on the same blocks."""
+    print(f"phase 18: bankd --iq-file, {SERVE['n_channels']} FM channels at "
+          f"{FS / 1e6:.3f} Msps, {DAEMON_BLOCKS} blocks", flush=True)
+    L, M = bankd.derive_geometry(FS)
+    check((L, M) == (SERVE["L"], SERVE["M"]),
+          f"derive_geometry: L {L}, M {M} (the serving geometry)")
+    freqs = bank_freqs(SERVE["n_channels"])
+    rec, out = os.path.join(tmp, "wide.iq"), os.path.join(tmp, "bankd.pcm")
+    record(rec, [make_block(b, L, freqs, SIGNAL, NO_PL, DEV)
+                 for b in range(DAEMON_BLOCKS)], FS, io_mod)
+    ffill.launches = 0
+    rc, err, wall = run_daemon(lambda: bankd.main(
+        ["--iq-file", rec, "-r", str(int(FS)), "--channels",
+         str(SERVE["n_channels"]), "-m", "FM", "--pcm-raw", out,
+         *daemon_flags()]))
+    launches = ffill.launches
+    check(rc == 0, f"bankd.main returned {rc} ({wall:.2f} s wall, the bank's "
+          "build included)")
+    check(launches == 2 * DAEMON_BLOCKS,
+          f"ffill launches {launches} == 2 per block x {DAEMON_BLOCKS}")
+    split = timing_split(err)
+    check(split is not None and split["blocks"] == DAEMON_BLOCKS,
+          "KA9Q_BANKD_TIMING split printed")
+    if split is not None:
+        print_split("bankd --iq-file", split, smi)
+    cfg = bank_mod.make_bank_config(len(freqs), "FM", samprate=FS, L=L, M=M)
+    bank = bank_mod.ChannelBank(cfg, freqs, device=DEV)
+    want = b"".join(raw_pcm(bank.process(blk)[0])
+                    for blk in io_mod.IQReader(rec).blocks(L))
+    got = open(out, "rb").read()
+    check(len(got) == DAEMON_BLOCKS * SERVE["n_channels"] * 960 * 2
+          and got == want,
+          f"--pcm-raw ({len(got)} bytes) bit-equal to ChannelBank.process on "
+          "the same blocks")
+    pcm = np.frombuffer(got, "<i2").reshape(DAEMON_BLOCKS,
+                                            SERVE["n_channels"], 960)
+    for ch in SIGNAL:
+        f = tone_hz(pcm[2:, ch].reshape(-1))
+        check(abs(f - 1000.0) < 5.0, f"ch {ch}: audio peak at {f:.1f} Hz")
+    os.unlink(rec)
+
+
+def phase_bankd_mixed(bankd, bank_mod, io_mod, status, ffill, agc, smi, tmp):
+    """bankd --channel-file: the mixed-mode daemon at bench's first mixed
+    row, --spare-slots 1, and a RADIO_MODE command on its command socket
+    between blocks; against a MultiBank driven directly with the same
+    edit."""
+    spec = MIXED_ROWS[0]
+    print("phase 19: bankd --channel-file " + " + ".join(
+        f"{m}:{n}" for m, n in spec) + f", --spare-slots 1, FM ch "
+        f"{MIGRATE_CH} -> USB before block {MIGRATE_AT}", flush=True)
+    L = SERVE["L"]
+    groups = _mixed_groups(spec)
+    chans = os.path.join(tmp, "channels.txt")
+    with open(chans, "w") as f:
+        for mode, fr in groups:
+            f.writelines(f"{x / 1e6:.7f}m {mode}\n" for x in fr)
+    fm_f, usb_f, cam_f = (fr for _, fr in groups)
+    fm = [(fm_f[c], False) for c in MIXED_FM_SIG]
+    carriers = ([(usb_f[c] + 1000.0, False, None) for c in MIXED_USB_SIG]
+                + [(cam_f[c] + o * PLL_BIN, True, None)
+                   for c, o in MIXED_CAM_SIG.items()])
+    rec, out = os.path.join(tmp, "mixed.iq"), os.path.join(tmp, "mixed.pcm")
+    record(rec, [make_iq(b, L, FS, SEED + 11, fm=fm, carriers=carriers)
+                 for b in range(DAEMON_BLOCKS)], FS, io_mod)
+    port = free_ports(3)
+    pkt = bytearray([1])
+    status.encode_int(pkt, status.StatusType.OUTPUT_SSRC, MIGRATE_CH + 1)
+    status.encode_string(pkt, status.StatusType.RADIO_MODE, "USB")
+    status.encode_eol(pkt)
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    file_source = bankd._file_source
+
+    def source(path, block_len):
+        """The recording, with the command sent to the daemon's command
+        socket before block MIGRATE_AT is read: the daemon polls it
+        between reading that block and stepping it."""
+        nxt, n = file_source(path, block_len), [0]
+
+        def next_block():
+            if n[0] == MIGRATE_AT:
+                tx.sendto(bytes(pkt), ("127.0.0.1", port + 2))
+            n[0] += 1
+            return nxt()
+        return next_block
+
+    ffill.launches = agc.launches = 0
+    bankd._file_source = source
+    try:
+        rc, err, wall = run_daemon(lambda: bankd.main(
+            ["--iq-file", rec, "-r", str(int(FS)), "--channel-file", chans,
+             "--spare-slots", "1", "-R", f"127.0.0.1:{port}",
+             "--pcm-raw", out, *daemon_flags()]))
+    finally:
+        bankd._file_source = file_source
+        tx.close()
+    launches = (ffill.launches, agc.launches)
+    check(rc == 0, f"bankd.main returned {rc} ({wall:.2f} s wall, the "
+          "MultiBank's build included)")
+    check(launches == (2 * DAEMON_BLOCKS, 2 * DAEMON_BLOCKS),
+          f"ffill launches {launches[0]} == 2 per block (FM group), agc "
+          f"launches {launches[1]} == 2 per block (USB and CAM groups)")
+    check(f"migrated ssrc {MIGRATE_CH + 1} FM->USB" in err,
+          "the daemon took the RADIO_MODE command and migrated the channel")
+    split = timing_split(err)
+    check(split is not None and split["blocks"] == DAEMON_BLOCKS,
+          "KA9Q_BANKD_TIMING split printed")
+    if split is not None:
+        print_split("bankd --channel-file", split, smi)
+    parsed = bankd.read_channel_file(chans)
+    padded = [(m, list(fr) + [0.0]) for m, fr in parsed]
+    mb = bank_mod.MultiBank(padded, samprate=FS, L=L, M=SERVE["M"],
+                            device=DEV)
+    for g, (_, fr) in enumerate(padded):        # the spares' commissioning
+        mb.init_channel(g, len(fr) - 1, fr[-1])
+    want = []
+    for b, blk in enumerate(io_mod.IQReader(rec).blocks(L)):
+        if b == MIGRATE_AT:
+            mb.init_channel(1, len(padded[1][1]) - 1,
+                            mb.group_freqs[0][MIGRATE_CH])
+        want += [raw_pcm(audio) for audio, _ in mb.process(blk)]
+    got = open(out, "rb").read()
+    check(got == b"".join(want),
+          f"--pcm-raw ({len(got)} bytes) bit-equal to a MultiBank driven "
+          "directly with the same edit")
+    os.unlink(rec)
+
+
+def phase_bankd_live(bankd, native, ffill, smi):
+    """bankd -I at README's deployment line over 127.0.0.1 unicast, fed by
+    the port's native RTPSender at the wire rate."""
+    fs, n_ch = LIVE["samprate"], LIVE["channels"]
+    print(f"phase 20: bankd -I, {n_ch} FM channels at {fs / 1e6:.3f} Msps, "
+          f"--max-active {LIVE['max_active']}, {LIVE['blocks']} blocks from "
+          "the native sender at the wire rate", flush=True)
+    L, _ = bankd.derive_geometry(fs)
+    freqs = np.linspace(-0.45 * fs, 0.45 * fs, n_ch, endpoint=False)
+    # one second of I/Q, which repeats seamlessly: every carrier and tone
+    # is a whole number of Hz
+    sec = torch.cat([make_iq(b, L, fs, SEED + 20,
+                             fm=[(freqs[c], False) for c in LIVE_SIG])
+                     for b in range(fs // L)]).cpu().numpy().reshape(-1)
+    p_in = free_ports(4)           # I/Q in; PCM out on +1, commands on +3
+    p_out = p_in + 1
+    stop = threading.Event()
+    pcm_rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    pcm_rx.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 8 << 20)
+    pcm_rx.bind(("127.0.0.1", p_out))
+    pcm_rx.settimeout(0.2)
+    got = {"packets": 0, "ssrcs": set(), "sent": 0}
+
+    def drain():
+        while not stop.is_set():
+            try:
+                d = pcm_rx.recv(9000)
+            except OSError:
+                continue
+            got["packets"] += 1
+            got["ssrcs"].add(int.from_bytes(d[8:12], "big"))
+
+    def send():
+        """Paced at the wire rate.  Until the daemon has bound its port a
+        send is refused; a new sender then restarts the pacing clock."""
+        pkts = -(-len(sec) // 2 // 2048)
+        while not stop.is_set():
+            tx = native.RTPSender("127.0.0.1", p_in, samprate=fs, ssrc=77)
+            while not stop.is_set():
+                n = tx.send(sec, pkt_samples=2048)
+                got["sent"] += max(n, 0)
+                if n < pkts:
+                    break
+            tx.close()
+            stop.wait(0.02)
+
+    result = {}
+
+    def serve():
+        result["rc"] = bankd.main(
+            ["-I", f"127.0.0.1:{p_in}", "-R", f"127.0.0.1:{p_out}", "-r",
+             str(fs), "--channels", str(n_ch), "-m", "FM", "--max-active",
+             str(LIVE["max_active"]), "--blocks", str(LIVE["blocks"]),
+             *daemon_flags()])
+
+    threads = [threading.Thread(target=f, daemon=True) for f in (drain, send)]
+    for t in threads:
+        t.start()
+    daemon = threading.Thread(target=serve, daemon=True)
+    ffill.launches = 0
+    rc, err, wall = run_daemon(lambda: (daemon.start(),
+                                        daemon.join(DAEMON_WAIT_S)))
+    launches = ffill.launches
+    stop.set()
+    for t in threads:
+        t.join(5.0)
+    pcm_rx.close()
+    check(result.get("rc") == 0,
+          f"bankd -I served {LIVE['blocks']} blocks and returned "
+          f"{result.get('rc')} ({wall:.2f} s wall, build and warm-up "
+          f"included; {got['sent']} I/Q packets sent)")
+    check(launches >= 2 * LIVE["blocks"],
+          f"ffill launches {launches} >= 2 per block")
+    want = {c + 1 for c in LIVE_SIG}
+    check(got["packets"] > 0 and got["ssrcs"] == want,
+          f"{got['packets']} PCM packets on -R from SSRCs "
+          f"{sorted(got['ssrcs'])} (the signal channels {sorted(want)})")
+    split = timing_split(err)
+    check(split is not None, "KA9Q_BANKD_TIMING split printed")
+    if split is not None:
+        print_split("bankd -I --max-active", split, smi)
+
+
+def phase_radio(radio, receiver, modulate, io_mod, status, ffill, agc, smi,
+                tmp):
+    """radio at its defaults on --iq-file recordings, against
+    Receiver.process on the same blocks; and its status packet."""
+    fs, L, rx_if = 192000, 3840, 48000.0
+    print(f"phase 21: radio --iq-file at 192 kHz (L {L}, M 4353), FM, AM, "
+          f"USB, {RADIO_BLOCKS} blocks each", flush=True)
+    for mode in ("FM", "AM", "USB"):
+        source = _rx_source(mode, modulate, rx_if, fs, L)
+        blocks = []
+        for b in range(RADIO_BLOCKS):
+            x = source(b)
+            blocks.append(torch.clamp(torch.round(torch.stack(
+                [x.real, x.imag], -1) * 32767.0), -32768, 32767)
+                .to(torch.int16))
+        rec = os.path.join(tmp, f"radio-{mode}.iq")
+        out = os.path.join(tmp, f"radio-{mode}.pcm")
+        record(rec, blocks, fs, io_mod)
+        argv = ["--iq-file", rec, "-f", "48k", "-m", mode, "-S", "1",
+                *daemon_flags()]
+        ffill.launches = agc.launches = 0
+        rc, _, wall = run_daemon(lambda: radio.main(argv
+                                                    + ["--pcm-raw", out]))
+        launches = ffill.launches if mode == "FM" else agc.launches
+        per = (2 if mode == "FM" else 1) * RADIO_BLOCKS
+        check(rc == 0 and launches == per,
+              f"{mode}: radio.main returned {rc}, "
+              f"{'ffill' if mode == 'FM' else 'agc'} launches {launches} == "
+              f"{per}; {wall * 1e3 / RADIO_BLOCKS:.3f} ms/block wall "
+              f"(the receiver's build included) [{smi}]")
+        rx = receiver.Receiver(receiver.make_receiver_config(
+            mode, samprate=fs, out_rate=48000, L=L, M=4353, kaiser_beta=3.0),
+            device=DEV)
+        rx.set_freq(rx_if)
+        payloads = []
+        pcm = io_mod.PCMOutput(send=lambda dg: payloads.append(dg[12:]),
+                               ssrc=1)
+        for blk in io_mod.IQReader(rec).blocks(L):
+            pcm.send_mono(rx.process(blk)[0].cpu().numpy())
+        got = open(out, "rb").read()
+        check(len(got) > 0 and got == b"".join(payloads),
+              f"{mode}: --pcm-raw ({len(got)} bytes) bit-equal to "
+              "Receiver.process on the same blocks")
+        f = tone_hz(np.frombuffer(got, ">i2")[-15 * 960:])
+        check(abs(f - 1000.0) < 5.0, f"{mode}: audio peak at {f:.1f} Hz")
+        args = radio.build_parser().parse_args(argv + ["--blocks", "2"])
+        d = radio.RadioDaemon(args)
+        sent = []
+        d.status_sock = type("Sink", (), {"send": lambda self, b:
+                                          sent.append(bytes(b))})()
+        d.run_file()
+        d.close()
+        items = dict(status.decode_packet(sent[0][1:])) if sent else {}
+        T = status.StatusType
+        check(bool(sent) and sent[0][0] == 0
+              and status.decode_double(items[T.RADIO_FREQUENCY]) == rx_if
+              and items[T.RADIO_MODE] == mode.encode()
+              and status.decode_int(items[T.OUTPUT_SSRC]) == 1
+              and T.NOISE_DENSITY in items,
+              f"{mode}: status packet decodes ({len(items)} items)")
+        os.unlink(rec)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -1240,6 +1635,9 @@ def main():
         from ka9q_sdr_tpu_torch.models.demod_fm import _pl_measure
         from ka9q_sdr_tpu_torch.models.demod_linear import _acquire
         from ka9q_sdr_tpu_torch.ops import _kernels, agc, ffill, pstock
+        from ka9q_sdr_tpu_torch import io as io_mod, native
+        from ka9q_sdr_tpu_torch.apps import bankd, radio
+        from ka9q_sdr_tpu_torch.net import status
     except ModuleNotFoundError as e:
         print(f"chip_smoke: the port is not importable ({e}); run this "
               "script from the root of a checkout", file=sys.stderr)
@@ -1311,6 +1709,14 @@ def main():
         time_bank(bank, SERVE["L"], SIGNAL, f"{mode} 4096 ch, 20 ms blocks",
                   20, smi)
         del bank
+    isb = _other_bank(bank_mod, "ISB", _other_freqs())
+    x = make_am_block(0, OTHER["L"], OTHER["samprate"], (), DEV)
+    _, _, busy = time_step(lambda: isb.process_i16_pcm(x), OTHER["n_channels"],
+                           OTHER["L"], OTHER["samprate"],
+                           "ISB 256 ch, 24.576 Msps", 20, smi)
+    check(busy == busy, "ISB step measured by device_ms (it queues without "
+          "making the host wait)")
+    del isb, x
     for n_ch, cfg in ((SERVE["n_channels"], serve_cfg),
                       (LONG["n_channels"], long_cfg)):
         fm = cfg.demod_cfg.to(DEV)
@@ -1333,6 +1739,19 @@ def main():
     phase_receiver(receiver, modulate, ffill, agc, smi)
     phase_receiver_wide(receiver, ffill, agc, smi)
     phase_offline(receiver, agc)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-")
+    try:
+        phase_bankd_file(bankd, bank_mod, io_mod, ffill, smi, tmp)
+        torch.cuda.empty_cache()
+        phase_bankd_mixed(bankd, bank_mod, io_mod, status, ffill, agc, smi,
+                          tmp)
+        torch.cuda.empty_cache()
+        phase_bankd_live(bankd, native, ffill, smi)
+        phase_radio(radio, receiver, modulate, io_mod, status, ffill, agc,
+                    smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", flush=True)

@@ -13,12 +13,20 @@ layout and public names so each counterpart sits under the same path:
                  demodulators, the noise estimate, the single receiver
                  with its control plane, and the single- and mixed-mode
                  channel banks with their live control.
-- ``io``       — the I/Q test modulator.
+- ``io``       — the I/Q test modulator, PCM packetisation, RTP block
+                 assembly and I/Q recordings.
+- ``net``      — RTP, the TLV status/command protocol, multicast and RTCP.
+- ``native``   — the C++ RTP I/Q engine and PCM fan-out (g++ at first use).
+- ``apps``     — the serving daemons ``bankd`` and ``radio``.
+- ``utils``    — the mode table, frequency parsing, state files, the
+                 daemons' device choice.
 - ``interop``  — carries state between the two packages as numpy trees.
 
-It imports torch and numpy and never jax.  No function chooses a device by
-itself: callers name one (``device=``), and a tensor on a CUDA device always
-goes through the CUDA kernels.
+It imports torch and numpy and never jax, nor anything of the JAX package:
+the host modules the daemons need are copies owned by the port.  No library
+function chooses a device by itself: callers name one (``device=``), and a
+tensor on a CUDA device always goes through the CUDA kernels.  The daemons
+run on the CUDA card unless ``--cpu``.
 """
 
 __version__ = "0.1.0"

@@ -334,9 +334,10 @@ def _isb_combine(f_fd: torch.Tensor, lo: torch.Tensor, N_dec: int,
     f_neg[..., : h + 1] = 0
     u = torch.fft.ifft(f_pos, dim=-1)[..., N_dec - L_dec:] * N_dec
     l_ = torch.fft.ifft(f_neg, dim=-1)[..., N_dec - L_dec:] * N_dec
-    n_out = np.arange(N_dec - L_dec, N_dec)
-    sign = torch.as_tensor(((-1.0) ** n_out).astype(np.float32),
-                           device=f_fd.device)
+    # (-1)^n built on the device: a host array copied in would wait for
+    # the stream on every block
+    n_out = torch.arange(N_dec - L_dec, N_dec, device=f_fd.device)
+    sign = (1 - 2 * (n_out % 2)).to(torch.float32)
     base = f_fd[..., 0:1] + f_fd[..., h: h + 1] * sign[None, :]
     u = (u - base) * lo
     l_ = l_ * lo

@@ -1,16 +1,19 @@
 """The port must import and run where jax is not installed (the machine
 with the card has none) and without the JAX package: import every port
 module and run two blocks of a tiny bank of each demodulator family, a live
-retune, a mixed-mode MultiBank, a receiver fed by the test modulator, and a
-column FFT on the CPU in a subprocess where ``import jax`` and
-``import ka9q_sdr_tpu`` fail."""
+retune, a mixed-mode MultiBank, a receiver fed by the test modulator, a
+column FFT, and the ``bankd`` and ``radio`` daemons on a tiny recording, on
+the CPU in a subprocess where ``import jax`` and ``import ka9q_sdr_tpu``
+fail."""
 
 import subprocess
 import sys
 from pathlib import Path
 
 _SCRIPT = r"""
+import os
 import sys
+import tempfile
 sys.modules["jax"] = None          # any "import jax" now raises ImportError
 sys.modules["jaxlib"] = None
 sys.modules["ka9q_sdr_tpu"] = None  # ... and so does the JAX package
@@ -25,6 +28,13 @@ from ka9q_sdr_tpu_torch.models import noise, receiver
 from ka9q_sdr_tpu_torch.io import Modulator
 from ka9q_sdr_tpu_torch.ops import (_kernels, agc, decimate, ffill, iir,
                                     pstock)
+from ka9q_sdr_tpu_torch import apps, native, net
+from ka9q_sdr_tpu_torch.apps import bankd, radio
+from ka9q_sdr_tpu_torch.io import (BlockAssembler, IQReader, IQRecorder,
+                                   PCMOutput, write_metadata)
+from ka9q_sdr_tpu_torch.models.doppler import DopplerSteerer
+from ka9q_sdr_tpu_torch.net import multicast, rtcp, rtp, status
+from ka9q_sdr_tpu_torch.utils import misc, modes, runtime, state
 
 fs, L = 1.536e6, 30720
 x = np.zeros((L, 2), np.int16)
@@ -59,6 +69,22 @@ interop.state_to_numpy(rx.state)
 yr, yi = pstock.make_fft_cols(8, 4, 4)(torch.ones(8, 4), torch.zeros(8, 4))
 assert float(yr[0, 0]) == 8.0
 assert ffill.launches == agc.launches == pstock.launches == 0
+tmp = tempfile.mkdtemp()
+rec = os.path.join(tmp, "in.iq")
+rng = np.random.default_rng(1)
+rng.integers(-300, 300, (2 * 30720, 2), dtype=np.int16).tofile(rec)
+write_metadata(rec, {"samplerate": "1536000", "frequency": "0.0"})
+for argv in (["--channels", "2", "-r", "1536000", "-m", "FM"],
+             ["--channels", "2", "-r", "1536000", "-m", "USB"]):
+    out = os.path.join(tmp, "bank.pcm")
+    assert bankd.main(argv + ["--iq-file", rec, "--cpu",
+                              "--pcm-raw", out]) == 0
+    assert os.path.getsize(out) == 2 * 2 * 960 * 2, argv
+out = os.path.join(tmp, "radio.pcm")
+assert radio.main(["--iq-file", rec, "-r", "1536000", "-L", "30720",
+                   "-M", "34817", "-f", "100k", "-m", "AM", "--cpu", "-S", "1",
+                   "--pcm-raw", out]) == 0
+assert 0 < os.path.getsize(out) <= 2 * 960 * 2
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "ka9q_sdr_tpu")
                for m, mod in sys.modules.items() if mod is not None)
 print("ok")
