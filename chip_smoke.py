@@ -40,7 +40,17 @@ drives the channel bank through its user entry points:
   the native sender at the wire rate; and ``radio`` at its defaults in FM,
   AM and USB, bit-equal to the receiver, with its status packet.  The
   daemons' per-block wall time and its split (KA9Q_BANKD_TIMING) print
-  beside the card's name and power limit.
+  beside the card's name and power limit;
+- the APRS chain, every daemon through its ``main()``: an AFSK-1200
+  position frame on an NBFM carrier beside FM tone channels, sent by
+  ``iqplay --native`` over 127.0.0.1 into ``bankd -I`` at 512 FM channels,
+  decoded by ``packetd`` and printed by ``aprs`` (the frame byte-equal, the
+  decode latency and packetd's CPU time per second of PCM printed); and at
+  radio's defaults, ``frontend --iq-file`` into ``radio -I`` into
+  ``packetd``, the front end retuned by radio's command over a multicast
+  group (a loopback probe checks the group first), ``iqrecord -d 1`` into
+  ``radio --iq-file``, and ``modulate -m usb`` on the card within 1 LSB of
+  the CPU.
 
 Times come from CUDA events.  Phases print their
 findings line by line.
@@ -51,6 +61,7 @@ directory without the port beside the script exit code 3.
 """
 
 import contextlib
+import io
 import json
 import os
 import re
@@ -115,6 +126,22 @@ LIVE_SIG = (3, 100, 257, 400, 511)
 #: how long phase 20 waits for the live daemon to serve its blocks
 DAEMON_WAIT_S = 30.0
 RADIO_BLOCKS = 25
+#: the APRS chain (phases 22-23): the live bank's channel that carries the
+#: AFSK-1200 frame and the LIVE_SIG tone channels beside it; the frame's
+#: start in each period of signal, its FM deviation, and the seconds of
+#: I/Q iqplay sends to bankd (the frame airs once a second)
+APRS_CH, APRS_TONES = 200, (3, 257, 511)
+APRS_START_S, APRS_DEV_HZ, APRS_SECONDS = 0.2, 3000.0, 2
+#: phase 23: the front end's centre; the frame's IF in its recording, 30
+#: kHz up, where radio finds it only after its LO1 command has retuned the
+#: front end (whose replay then shifts by the retune); the period of the
+#: looped recording, how long the front end streams, and the blocks radio
+#: serves: any 2.5 s of stream hold a whole airing (period 1.5 s, frame
+#: 0.35 s) after the retune, and radio has 3.5 s to bind
+FE_CENTER, FE_IF = 146.0e6, 30e3
+FE_PERIOD_S, FE_SECONDS, FE_RADIO_BLOCKS = 1.5, 6.0, 125
+#: the SSRC of the datagrams that run packetd up to its --packets count
+FILLER_SSRC = 0xF111
 
 
 def check(cond, what):
@@ -158,31 +185,36 @@ def flush_l2():
 def _span_ms(calls):
     """Device time of the work that calls() queues: CUDA events around it
     while a spin kernel holds the device until all of it is queued, so no
-    enqueue gap of the host counts (unlike cuda_ms).  calls() runs twice:
-    the first run, unspun, measures how long the host takes to queue it.
+    enqueue gap of the host counts (unlike cuda_ms).  calls() runs twice or
+    more: the first run, unspun, measures how long the host takes to queue
+    it.
     Where the host had to wait for the device to queue it (a host sync, or
     more launches than the device's launch queue holds, about a thousand),
-    the span would hold host time: nan, with a note."""
+    the span would hold host time: nan, with a note.  A host stall that
+    outlasts the spin once is retried twice with a spin four times longer;
+    a step that waits for the device outlasts every spin."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     calls()
     host = time.perf_counter() - t0
     torch.cuda.synchronize()
     spin = 4 * host + 5e-3
-    torch.cuda._sleep(int(spin * CLOCK_HZ))
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    calls()
-    end.record()
-    queued = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    if queued >= spin:
-        print(f"  (not measured: queuing took {queued * 1e3:.1f} ms, past "
-              f"the {spin * 1e3:.1f} ms spin)", flush=True)
-        return float("nan")
-    return start.elapsed_time(end)
+    for _ in range(3):
+        torch.cuda._sleep(int(spin * CLOCK_HZ))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        calls()
+        end.record()
+        queued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if queued < spin:
+            return start.elapsed_time(end)
+        spin *= 4
+    print(f"  (not measured: queuing took {queued * 1e3:.1f} ms, past "
+          f"the {spin / 4 * 1e3:.1f} ms spin)", flush=True)
+    return float("nan")
 
 
 def device_ms(fn, iters, cold=False):
@@ -1622,6 +1654,415 @@ def phase_radio(radio, receiver, modulate, io_mod, status, ffill, agc, smi,
         os.unlink(rec)
 
 
+def aprs_frame(ax25):
+    """The APRS position report the chain carries (KA9Q-9, 37 22.50 N
+    122 00.00 W), built by the port's AX.25 encoders."""
+    return ax25.append_crc(ax25.encode_callsign("APRS")
+                           + ax25.encode_callsign("KA9Q-9", last=True)
+                           + bytes([0x03, 0xF0]) + b"!3722.50N/12200.00W-")
+
+
+APRS_REPORT = "KA9Q-9: Lat 37.375000 Long -122.000000"
+
+
+def afsk_period(afsk, frame, seconds):
+    """`seconds` of 48 kHz audio: the frame's AFSK-1200 waveform from
+    APRS_START_S on, silence around it.  Returns the audio and the
+    second at which the frame ends."""
+    audio = np.zeros(int(seconds * 48000), np.float32)
+    wave = afsk.afsk_modulate(frame, amplitude=1.0)
+    start = int(APRS_START_S * 48000)
+    audio[start:start + len(wave)] = wave
+    return audio, (start + len(wave)) / 48000.0
+
+
+def fm_cycles(audio, fs):
+    """The FM phase, in cycles at rate fs, of 48 kHz audio held for each
+    output sample (zero-order hold) at APRS_DEV_HZ deviation."""
+    held = torch.as_tensor(audio, dtype=torch.float64,
+                           device=DEV).repeat_interleave(int(fs) // 48000)
+    return torch.cumsum(held, 0) * (APRS_DEV_HZ / fs)
+
+
+class _Relay:
+    """The AX.25 port: keeps each datagram with its arrival time on the
+    host clock and passes it on to `forward` (aprs's port)."""
+
+    def __init__(self, port, forward):
+        self.rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self.rx.bind(("127.0.0.1", port))
+        self.rx.settimeout(0.1)
+        self.tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self.forward = forward
+        self.got = []
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        while not self.stop.is_set():
+            try:
+                d = self.rx.recv(9000)
+            except OSError:
+                continue
+            self.got.append((time.monotonic(), d))
+            if self.forward:
+                self.tx.sendto(d, ("127.0.0.1", self.forward))
+
+    def close(self):
+        self.stop.set()
+        self.thread.join(5.0)
+        self.rx.close()
+        self.tx.close()
+
+
+def run_thread(fn, res, key):
+    """fn() on a thread of its own, its result in res[key]."""
+    t = threading.Thread(target=lambda: res.__setitem__(key, fn()),
+                         daemon=True)
+    t.start()
+    return t
+
+
+def drain_packetd(thread, port, rtp):
+    """Send packetd tiny PCM datagrams until its --packets count ends it."""
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    seq = 0
+    while thread.is_alive() and seq < 1 << 20:
+        for _ in range(200):
+            tx.sendto(rtp.RTPHeader(type=rtp.PCM_MONO_PT, seq=seq & 0xFFFF,
+                                    timestamp=seq, ssrc=FILLER_SSRC)
+                      .to_bytes() + b"\x00\x01", ("127.0.0.1", port))
+            seq += 1
+        thread.join(0.01)
+    thread.join(5.0)
+    tx.close()
+
+
+def phase_aprs_bank(mods, ffill, smi, tmp):
+    """APRS end to end through the live bank at README's deployment line:
+    iqplay --native -> bankd -I -> packetd -> aprs, all through main()."""
+    bankd, native, iqplay, packetd, aprs_app, ax25, afsk, io_mod, rtp = (
+        mods[k] for k in ("bankd", "native", "iqplay", "packetd", "aprs",
+                          "ax25", "afsk", "io", "rtp"))
+    fs, n_ch = LIVE["samprate"], LIVE["channels"]
+    L, _ = bankd.derive_geometry(fs)
+    per_s = fs // L
+    blocks = APRS_SECONDS * per_s - 5
+    print(f"phase 22: APRS through iqplay --native -> bankd -I ({n_ch} FM "
+          f"channels at {fs / 1e6:.3f} Msps, --max-active "
+          f"{LIVE['max_active']}, {blocks} blocks) -> packetd -> aprs; the "
+          f"frame on ch {APRS_CH}, tones on ch {list(APRS_TONES)}",
+          flush=True)
+    freqs = np.linspace(-0.45 * fs, 0.45 * fs, n_ch, endpoint=False)
+    frame = aprs_frame(ax25)
+    audio, end_s = afsk_period(afsk, frame, 1.0)
+    dev = fm_cycles(audio, fs)
+    sec = []
+    for b in range(per_s):
+        x = make_iq(b, L, fs, SEED + 22, fm=[(freqs[c], False)
+                                             for c in APRS_TONES])
+        n = b * L + torch.arange(L, device=DEV, dtype=torch.float64)
+        ph = 2 * np.pi * torch.frac(torch.frac(n * (freqs[APRS_CH] / fs))
+                                    + dev[b * L:(b + 1) * L])
+        x = x.to(torch.float64)
+        x[:, 0] += 0.05 * 32767.0 * torch.cos(ph)
+        x[:, 1] += 0.05 * 32767.0 * torch.sin(ph)
+        sec.append(torch.clamp(x, -32768, 32767).to(torch.int16))
+    rec = os.path.join(tmp, "aprs-wide.iq")
+    record(rec, sec * APRS_SECONDS, fs, io_mod)
+    del sec, dev
+    base = free_ports(6)
+    p_iq, p_pcm, p_ax, p_aprs = base, base + 1, base + 4, base + 5
+    max_pcm = 2 * LIVE["max_active"] * blocks + 1   # more than bankd sends
+    res, pcm = {}, {}
+    bound = threading.Event()
+    real_rx, real_feed = native.RTPReceiver, packetd.PacketSession.feed
+
+    class BoundReceiver(real_rx):
+        """bankd's receive engine; tells the sender when it has bound."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            bound.set()
+
+    def counting_feed(session, hdr, payload):
+        """PacketSession.feed, its PCM kept and its CPU time summed for
+        every datagram but the fillers."""
+        if hdr.ssrc == FILLER_SSRC:
+            return real_feed(session, hdr, payload)
+        pcm.setdefault(hdr.ssrc, []).append(payload)
+        t0 = time.thread_time()
+        real_feed(session, hdr, payload)
+        res["feed_cpu"] = res.get("feed_cpu", 0.0) + time.thread_time() - t0
+
+    def send():
+        if bound.wait(DAEMON_WAIT_S):
+            res["t_send"] = time.monotonic()
+            return iqplay.main(["-R", f"127.0.0.1:{p_iq}", "--native", "-b",
+                                "2048", rec])
+
+    out = _Tee(sys.stdout)
+    relay = _Relay(p_ax, p_aprs)
+    native.RTPReceiver, packetd.PacketSession.feed = (BoundReceiver,
+                                                      counting_feed)
+    try:
+        with contextlib.redirect_stdout(out):
+            t_aprs = run_thread(lambda: aprs_app.main(
+                ["-I", f"127.0.0.1:{p_aprs}", "--lat", "37.0", "--lon",
+                 "-122.5", "--packets", "1"]), res, "aprs")
+            t_pk = run_thread(lambda: packetd.main(
+                ["-I", f"127.0.0.1:{p_pcm}", "-R", f"127.0.0.1:{p_ax}", "-v",
+                 "--packets", str(max_pcm)]), res, "packetd")
+            t_tx = run_thread(send, res, "iqplay")
+            daemon = threading.Thread(target=lambda: res.__setitem__(
+                "bankd", bankd.main(
+                    ["-I", f"127.0.0.1:{p_iq}", "-R", f"127.0.0.1:{p_pcm}",
+                     "-r", str(fs), "--channels", str(n_ch), "-m", "FM",
+                     "--max-active", str(LIVE["max_active"]), "--blocks",
+                     str(blocks), *daemon_flags()])), daemon=True)
+            ffill.launches = 0
+            _, err, wall = run_daemon(lambda: (daemon.start(),
+                                               daemon.join(DAEMON_WAIT_S)))
+            launches = ffill.launches
+            t_tx.join(DAEMON_WAIT_S)
+            drain_packetd(t_pk, p_pcm, rtp)
+            t_aprs.join(5.0)
+            if t_aprs.is_alive():
+                # no frame came: end aprs with a status frame, which leaves
+                # the position checks below failing
+                stop = ax25.append_crc(
+                    ax25.encode_callsign("APRS")
+                    + ax25.encode_callsign("STOP", last=True)
+                    + bytes([0x03, 0xF0]) + b">no frame decoded")
+                relay.tx.sendto(rtp.RTPHeader(type=rtp.AX25_PT).to_bytes()
+                                + stop, ("127.0.0.1", p_aprs))
+                t_aprs.join(5.0)
+    finally:
+        native.RTPReceiver, packetd.PacketSession.feed = real_rx, real_feed
+        relay.close()
+    os.unlink(rec)
+    check(all(res.get(k) == 0 for k in ("iqplay", "bankd", "packetd",
+                                        "aprs")),
+          "iqplay, bankd, packetd and aprs returned 0 ("
+          + ", ".join(f"{k} {res.get(k)}" for k in ("iqplay", "bankd",
+                                                     "packetd", "aprs"))
+          + f"; bankd {wall:.2f} s wall, its build and warm-up included)")
+    check(launches >= 2 * blocks,
+          f"ffill launches {launches} >= 2 per block x {blocks}")
+    got = relay.got[0][1] if relay.got else b""
+    check(got[1:2] == bytes([rtp.AX25_PT]) and got[12:] == frame,
+          f"the first of {len(relay.got)} AX.25 datagrams is the modulated "
+          f"frame, byte for byte ({len(frame)} bytes)")
+    check(APRS_REPORT in "".join(out.parts),
+          f"aprs printed the frame's position ({APRS_REPORT!r})")
+    want = {c + 1 for c in APRS_TONES + (APRS_CH,)}
+    check(set(pcm) == want, f"packetd took PCM from SSRCs {sorted(pcm)} "
+          f"(the signal channels {sorted(want)})")
+    tone = np.frombuffer(b"".join(pcm.get(APRS_TONES[0] + 1, [])), ">i2")
+    f = tone_hz(tone[-48000:]) if len(tone) else float("nan")
+    check(abs(f - 1000.0) < 5.0,
+          f"tone ch {APRS_TONES[0]} still comes out of bankd: audio peak at "
+          f"{f:.1f} Hz")
+    split = timing_split(err)
+    check(split is not None, "KA9Q_BANKD_TIMING split printed")
+    if split is not None:
+        print_split("bankd -I --max-active (APRS)", split, smi)
+    secs = sum(len(p) for ps in pcm.values() for p in ps) / 2 / 48000.0
+    if secs:
+        print(f"  packetd: {res.get('feed_cpu', 0.0) * 1e3 / secs:.3f} ms of "
+              f"CPU per second of PCM in PacketSession.feed (its thread's "
+              f"CPU clock) over {secs:.2f} channel-seconds, {len(pcm)} "
+              f"sessions [{smi}]", flush=True)
+    if relay.got and "t_send" in res:
+        # the frame's last sample leaves the paced sender end_s after its
+        # start in each second of signal
+        t = relay.got[0][0] - res["t_send"] - end_s
+        k = max(0, int(t // 1.0))
+        print(f"  decode latency {(t - k) * 1e3:.1f} ms, from the last I/Q "
+              f"sample of the frame's airing {k + 1} leaving the sender (its "
+              "pacing clock) to the AX.25 datagram arriving (host clock) "
+              f"[{smi}]", flush=True)
+
+
+def multicast_loopback(port, mc):
+    """True when one datagram sent to a multicast group arrives at a
+    socket joined to it on this host."""
+    grp = f"239.77.23.9:{port}"
+    try:
+        rx = mc.setup_mcast(grp, output=False)
+        tx = mc.setup_mcast(grp, output=True)
+    except OSError:
+        return False
+    rx.settimeout(1.0)
+    try:
+        tx.send(b"probe")
+        return rx.recv(64) == b"probe"
+    except OSError:
+        return False
+    finally:
+        rx.close()
+        tx.close()
+
+
+def phase_aprs_radio(mods, ffill, smi, tmp):
+    """APRS end to end at radio's defaults: frontend --iq-file -> radio -I
+    -> packetd; iqrecord -d 1 -> radio --iq-file; modulate -m usb."""
+    (frontend, fe_model, radio, iqrecord, packetd, modulate_app, modulate,
+     afsk, ax25, io_mod, rtp, status, mc) = (mods[k] for k in (
+        "frontend", "fe_model", "radio", "iqrecord", "packetd",
+        "modulate_app", "modulate", "afsk", "ax25", "io", "rtp", "status",
+        "multicast"))
+    fs = 192000
+    print(f"phase 23: APRS through frontend --iq-file -> radio -I -> packetd "
+          f"at 192 kHz (L 3840, M 4353, {FE_RADIO_BLOCKS} blocks); iqrecord "
+          "-d 1 -> radio --iq-file; modulate -m usb", flush=True)
+    base = free_ports(10)
+    # frontend and radio -I share data port + 2 for commands and status;
+    # over 127.0.0.1 the two sockets bound there would split its datagrams
+    # between them, so the control loop needs a multicast group
+    mcast = multicast_loopback(base + 9, mc)
+    check(mcast, "a datagram sent to a multicast group on this host "
+          "arrived (the front end's control loop runs over one)")
+    if not mcast:
+        return
+    data, data2 = f"239.77.23.1:{base}", f"239.77.23.2:{base + 3}"
+    p_pcm = base + 6                    # radio's RTCP on +1, status on +2
+    frame = aprs_frame(ax25)
+    audio, _ = afsk_period(afsk, frame, FE_PERIOD_S)
+    cyc = fm_cycles(audio, fs).cpu().numpy()
+    n = np.arange(len(cyc))
+    rng = np.random.default_rng(SEED + 23)
+    iq = 0.1 * np.exp(2j * np.pi * (n * (FE_IF / fs) + cyc)) + 0.003 * (
+        rng.standard_normal(len(n)) + 1j * rng.standard_normal(len(n)))
+    x = np.empty((len(n), 2), np.int16)
+    x[:, 0], x[:, 1] = np.round(iq.real * 32767), np.round(iq.imag * 32767)
+    rec = os.path.join(tmp, "aprs-192k.iq")
+    x.tofile(rec)
+    io_mod.write_metadata(rec, {"samplerate": str(fs),
+                                "frequency": f"{FE_CENTER:.1f}"})
+    rf = FE_CENTER + FE_IF
+    lo1 = rf + fs / 4                   # the LO1 radio asks for (LO2 fs/4)
+    res = {}
+    ax = _Relay(0, None)
+    p_ax = ax.rx.getsockname()[1]
+    watch = mc.setup_mcast(data, output=False, offset=2)
+    max_pcm = 2 * (FE_RADIO_BLOCKS + 1) + 1
+    t_pk = run_thread(lambda: packetd.main(
+        ["-I", f"127.0.0.1:{p_pcm}", "-R", f"127.0.0.1:{p_ax}", "-v",
+         "--packets", str(max_pcm)]), res, "packetd")
+    t_fe = run_thread(lambda: frontend.main(
+        ["-R", data, "-f", f"{FE_CENTER:.0f}", "--iq-file", rec,
+         "--seconds", str(FE_SECONDS)]), res, "frontend")
+    time.sleep(0.2)
+    ffill.launches = 0
+    t0 = time.perf_counter()
+    t_rx = run_thread(lambda: radio.main(
+        ["-I", data, "-R", f"127.0.0.1:{p_pcm}", "-f", f"{rf:.0f}", "-m",
+         "FM", "-S", "1", "--blocks", str(FE_RADIO_BLOCKS),
+         *daemon_flags()]), res, "radio")
+    t_rx.join(FE_SECONDS + DAEMON_WAIT_S)
+    wall = time.perf_counter() - t0
+    launches = ffill.launches
+    t_fe.join(FE_SECONDS + 5.0)
+    drain_packetd(t_pk, p_pcm, rtp)
+    ax.close()
+    check(all(res.get(k) == 0 for k in ("frontend", "radio", "packetd")),
+          f"frontend, radio -I and packetd returned 0 (frontend "
+          f"{res.get('frontend')}, radio {res.get('radio')}, packetd "
+          f"{res.get('packetd')}; radio {wall:.2f} s wall)")
+    check(launches == 2 * (FE_RADIO_BLOCKS + 1),
+          f"ffill launches {launches} == 2 per radio block x "
+          f"{FE_RADIO_BLOCKS}, its warm-up block included")
+    got = ax.got[0][1] if ax.got else b""
+    check(got[12:] == frame,
+          f"packetd sent the modulated frame first, byte for byte "
+          f"({len(ax.got)} AX.25 datagrams)")
+    T = status.StatusType
+    cmds, fe_status = [], {}
+    watch.setblocking(False)
+    while True:
+        try:
+            d = watch.recv(9000)
+        except OSError:
+            break
+        items = dict(status.decode_packet(d[1:]))
+        if d[:1] == b"\x01" and T.RADIO_FREQUENCY in items:
+            cmds.append(status.decode_double(items[T.RADIO_FREQUENCY]))
+        elif d[:1] == b"\x00":
+            fe_status.update(items)
+    watch.close()
+    actual = (status.decode_double(fe_status[T.RADIO_FREQUENCY])
+              if T.RADIO_FREQUENCY in fe_status else None)
+    commands = (status.decode_int(fe_status[T.COMMANDS])
+                if T.COMMANDS in fe_status else 0)
+    check(lo1 in cmds and commands >= 1
+          and actual == fe_model.fcd_actual_frequency(lo1),
+          f"radio commanded LO1 {lo1:.0f} Hz on the wire ({len(cmds)} "
+          f"commands), the front end took {commands} and reports LO1 "
+          f"{actual} Hz, the MSi001's quantisation of it")
+
+    # iqrecord -d 1 on the front end's stream, then radio on the recording
+    rec_dir = os.path.join(tmp, "iqrecord")
+    os.makedirs(rec_dir)
+    t_rec = run_thread(lambda: iqrecord.main(
+        ["-I", data2, "-D", rec_dir, "-d", "1"]), res, "iqrecord")
+    time.sleep(0.3)
+    res["frontend2"] = frontend.main(["-R", data2, "-f", f"{FE_CENTER:.0f}",
+                                      "--iq-file", rec, "--seconds", "1.3"])
+    t_rec.join(5.0)
+    names = [f for f in os.listdir(rec_dir) if not f.endswith(".attrs")]
+    meta = (io_mod.read_metadata(os.path.join(rec_dir, names[0]))
+            if len(names) == 1 else {})
+    check(res.get("iqrecord") == 0 and res.get("frontend2") == 0
+          and len(names) == 1 and meta.get("samplerate") == str(fs),
+          f"iqrecord -d 1 returned {res.get('iqrecord')}: {names}, "
+          f"samplerate {meta.get('samplerate')}, frequency "
+          f"{meta.get('frequency')}")
+    if len(names) == 1:
+        path = os.path.join(rec_dir, names[0])
+        out = os.path.join(tmp, "aprs-radio.pcm")
+        ffill.launches = 0
+        rc = radio.main(["--iq-file", path, f"--frequency={FE_IF / 1e3:.0f}k",
+                         "-m", "FM", "-S", "1", "--pcm-raw", out,
+                         *daemon_flags()])
+        nblk = -(-os.path.getsize(path) // (4 * 3840))  # tail zero-padded
+        frames = afsk.AFSKDemodulator().process(
+            np.frombuffer(open(out, "rb").read(), ">i2").astype(np.float32)
+            / 32767.0)
+        check(rc == 0 and ffill.launches == 2 * nblk and frame in frames,
+              f"radio --iq-file on the recording returned {rc}, ffill "
+              f"launches {ffill.launches} == 2 x {nblk} blocks, frames "
+              f"{[len(f) for f in frames]} hold the modulated one")
+
+    # modulate -m usb on the card against the Modulator on the CPU
+    rng = np.random.default_rng(SEED + 24)
+    tt = np.arange(6 * 240) / 48000.0
+    a16 = (0.5 * np.sin(2 * np.pi * 1000.0 * tt) * 32767
+           + rng.standard_normal(len(tt)) * 200).astype("<i2")
+    buf = type("Stream", (), {})
+    fin, fout = buf(), buf()
+    fin.buffer, fout.buffer = io.BytesIO(a16.tobytes()), io.BytesIO()
+    stdin, stdout = sys.stdin, sys.stdout
+    sys.stdin, sys.stdout = fin, fout
+    try:
+        rc = modulate_app.main(["-m", "usb", *daemon_flags()])
+    finally:
+        sys.stdin, sys.stdout = stdin, stdout
+    got = np.frombuffer(fout.buffer.getvalue(), np.int16)
+    m = modulate.Modulator("usb", frequency=48000.0, amplitude_db=-20.0,
+                           samprate=fs, device="cpu")
+    want = np.frombuffer(b"".join(
+        m.to_int16(m.process(a16[i:i + 240].astype(np.float32) / 32767.0))
+        for i in range(0, len(a16), 240)), np.int16)
+    err = (int(np.abs(got.astype(np.int32) - want).max())
+           if len(got) == len(want) else None)
+    check(rc == 0 and err is not None and err <= 1,
+          f"modulate -m usb on the {DEV} returned {rc}: {len(got)} int16 "
+          f"within {err} LSB of the Modulator on the CPU")
+    os.unlink(rec)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -1638,6 +2079,12 @@ def main():
         from ka9q_sdr_tpu_torch import io as io_mod, native
         from ka9q_sdr_tpu_torch.apps import bankd, radio
         from ka9q_sdr_tpu_torch.net import status
+        from ka9q_sdr_tpu_torch.apps import (aprs as aprs_app, frontend,
+                                             iqplay, iqrecord, packetd)
+        from ka9q_sdr_tpu_torch.apps import modulate as modulate_app
+        from ka9q_sdr_tpu_torch.decode import afsk, ax25
+        from ka9q_sdr_tpu_torch.models import frontend as fe_model
+        from ka9q_sdr_tpu_torch.net import multicast, rtp
     except ModuleNotFoundError as e:
         print(f"chip_smoke: the port is not importable ({e}); run this "
               "script from the root of a checkout", file=sys.stderr)
@@ -1750,6 +2197,13 @@ def main():
         phase_bankd_live(bankd, native, ffill, smi)
         phase_radio(radio, receiver, modulate, io_mod, status, ffill, agc,
                     smi, tmp)
+        mods = dict(bankd=bankd, native=native, iqplay=iqplay,
+                    packetd=packetd, aprs=aprs_app, ax25=ax25, afsk=afsk,
+                    io=io_mod, rtp=rtp, frontend=frontend, fe_model=fe_model,
+                    radio=radio, iqrecord=iqrecord, modulate_app=modulate_app,
+                    modulate=modulate, status=status, multicast=multicast)
+        phase_aprs_bank(mods, ffill, smi, tmp)
+        phase_aprs_radio(mods, ffill, smi, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

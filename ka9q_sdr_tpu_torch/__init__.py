@@ -11,13 +11,18 @@ layout and public names so each counterpart sits under the same path:
                  (``csrc/pstock.cu``).
 - ``models``   — the FM, AM and linear (SSB/CW/IQ/ISB/CAM PLL)
                  demodulators, the noise estimate, the single receiver
-                 with its control plane, and the single- and mixed-mode
-                 channel banks with their live control.
+                 with its control plane, the single- and mixed-mode
+                 channel banks with their live control, and the hardware
+                 front-end model (host numpy).
 - ``io``       — the I/Q test modulator, PCM packetisation, RTP block
                  assembly and I/Q recordings.
-- ``net``      — RTP, the TLV status/command protocol, multicast and RTCP.
+- ``net``      — RTP, the TLV status/command protocol, multicast, RTCP and
+                 the legacy in-band status header.
 - ``native``   — the C++ RTP I/Q engine and PCM fan-out (g++ at first use).
-- ``apps``     — the serving daemons ``bankd`` and ``radio``.
+- ``decode``   — the AFSK-1200 modem, AX.25 and APRS (host numpy).
+- ``apps``     — the daemons: ``bankd`` and ``radio``; ``frontend``,
+                 ``iqplay``, ``iqrecord``, ``modulate``, ``pcmsend``;
+                 ``packetd``, ``aprs`` and ``aprsfeed``.
 - ``utils``    — the mode table, frequency parsing, state files, the
                  daemons' device choice.
 - ``interop``  — carries state between the two packages as numpy trees.
@@ -26,7 +31,8 @@ It imports torch and numpy and never jax, nor anything of the JAX package:
 the host modules the daemons need are copies owned by the port.  No library
 function chooses a device by itself: callers name one (``device=``), and a
 tensor on a CUDA device always goes through the CUDA kernels.  The daemons
-run on the CUDA card unless ``--cpu``.
+that use a device (``bankd``, ``radio``, ``modulate``) run on the CUDA card
+unless ``--cpu``.
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,9 @@
 """Wire-compatible host transport (a copy of ``ka9q_sdr_tpu.net`` owned by
-the port): RTP over IP multicast, the TLV status/command protocol and RTCP.
+the port): RTP over IP multicast, the TLV status/command protocol, RTCP and
+the legacy in-band status header.
 
 This layer reproduces the reference's network interfaces bit-for-bit
-(multicast.c, status.c, rtcp.c) so the reference's own consumers --
+(multicast.c, status.c, rtcp.c, sdr.h) so the reference's own consumers --
 monitor, pcmcat, opus, VLC -- and the JAX package's tools interoperate
 with the port's streams.  Pure host code; the card never sees a packet.
 """
@@ -35,3 +36,4 @@ from .status import (
 from .multicast import setup_mcast, DEFAULT_MCAST_PORT
 from .rtcp import (RTCPSenderReport, RTCPReceiverReport, SDESItem, gen_sr,
                    gen_rr, gen_sdes, gen_bye)
+from .sdr_header import LegacyStatus, LEGACY_STATUS_SIZE

@@ -2,9 +2,10 @@
 with the card has none) and without the JAX package: import every port
 module and run two blocks of a tiny bank of each demodulator family, a live
 retune, a mixed-mode MultiBank, a receiver fed by the test modulator, a
-column FFT, and the ``bankd`` and ``radio`` daemons on a tiny recording, on
-the CPU in a subprocess where ``import jax`` and ``import ka9q_sdr_tpu``
-fail."""
+column FFT, the ``bankd`` and ``radio`` daemons on a tiny recording, the
+packet modem's session on an AFSK frame, two front-end blocks of a tiny
+recording and ``modulate`` on a few blocks, on the CPU in a subprocess
+where ``import jax`` and ``import ka9q_sdr_tpu`` fail."""
 
 import subprocess
 import sys
@@ -35,6 +36,13 @@ from ka9q_sdr_tpu_torch.io import (BlockAssembler, IQReader, IQRecorder,
 from ka9q_sdr_tpu_torch.models.doppler import DopplerSteerer
 from ka9q_sdr_tpu_torch.net import multicast, rtcp, rtp, status
 from ka9q_sdr_tpu_torch.utils import misc, modes, runtime, state
+from ka9q_sdr_tpu_torch import __main__ as listing, decode
+from ka9q_sdr_tpu_torch.apps import (aprs, aprsfeed, frontend, iqplay,
+                                     iqrecord, modulate, packetd, pcmsend)
+from ka9q_sdr_tpu_torch.decode import afsk, ax25
+from ka9q_sdr_tpu_torch.decode import aprs as aprs_decode
+from ka9q_sdr_tpu_torch.models import frontend as frontend_model
+from ka9q_sdr_tpu_torch.net import sdr_header
 
 fs, L = 1.536e6, 30720
 x = np.zeros((L, 2), np.int16)
@@ -85,6 +93,36 @@ assert radio.main(["--iq-file", rec, "-r", "1536000", "-L", "30720",
                    "-M", "34817", "-f", "100k", "-m", "AM", "--cpu", "-S", "1",
                    "--pcm-raw", out]) == 0
 assert 0 < os.path.getsize(out) <= 2 * 960 * 2
+frame = ax25.append_crc(ax25.encode_callsign("APRS")
+                        + ax25.encode_callsign("KA9Q-9", last=True)
+                        + bytes([0x03, 0xF0]) + b"!3722.50N/12200.00W-")
+pcm = np.concatenate([np.zeros(2000, np.float32), afsk.afsk_modulate(frame),
+                      np.zeros(4000, np.float32)])
+q = np.round(pcm * 32767).astype(">i2")
+sent = []
+session = packetd.PacketSession(1, sent.append)
+for i in range(0, len(q), 480):
+    session.feed(rtp.RTPHeader(type=11, seq=i // 480, timestamp=i, ssrc=1),
+                 q[i:i + 480].tobytes())
+assert [d[12:] for d in sent] == [frame]
+info = aprs_decode.parse_aprs(ax25.ax25_parse(frame))
+assert abs(info["latitude"] - 37.375) < 1e-9
+fe_rec = os.path.join(tmp, "fe.iq")
+rng.integers(-300, 300, (500, 2), dtype=np.int16).tofile(fe_rec)
+fe = frontend.FrontEndDaemon(frontend.build_args(
+    ["-R", "239.96.6.1:5740", "--iq-file", fe_rec]))
+assert [fe.next_block().shape for _ in range(2)] == [(240,), (240,)]
+fe.ctl_sock.close()
+import io
+out = io.BytesIO()
+stdin, stdout = sys.stdin, sys.stdout
+sys.stdin = type("In", (), {"buffer": io.BytesIO(bytes(2 * 240 * 3))})()
+sys.stdout = type("Out", (), {"buffer": out})()
+try:
+    assert modulate.main(["-m", "usb", "--cpu"]) == 0
+finally:
+    sys.stdin, sys.stdout = stdin, stdout
+assert len(out.getvalue()) == 3 * 960 * 4
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "ka9q_sdr_tpu")
                for m, mod in sys.modules.items() if mod is not None)
 print("ok")
