@@ -11,8 +11,9 @@ PyTorch version: the FM forward fill (float, complex and conjugate-view
 values) and the hang AGC bit for bit, the column Stockham FFT within 2e-6
 for every Q from 1 to 16384 (and against numpy).  It times each at the
 main path's shapes beside its bound (bytes over 3.35 TB/s), the AGC also
-beside its chain floor (its walk's measured cycles per sample at the SM
-clock nvidia-smi reports), and the column FFT beside cuFFT.  Then it
+beside its chain floor (its step's three dependent instructions at 4
+cycles each, at the SM clock nvidia-smi reports) and its walk's measured
+cycles per sample, and the column FFT beside cuFFT.  Then it
 drives the channel bank through its user entry points:
 
 - the FM+PL bank (the path ``bench.py`` measures and ``apps/bankd.py``
@@ -50,7 +51,16 @@ drives the channel bank through its user entry points:
   ``packetd``, the front end retuned by radio's command over a multicast
   group (a loopback probe checks the group first), ``iqrecord -d 1`` into
   ``radio --iq-file``, and ``modulate -m usb`` on the card within 1 LSB of
-  the CPU.
+  the CPU;
+- the deployment chain (deploy/bankd -> opus-vhf -> monitor-vhf) over
+  multicast groups: ``bankd -I`` at 512 FM channels with 62 tone carriers,
+  an unmodulated one and one between channels, ``opusd -o 32000 -x`` and
+  ``monitor`` as subprocesses, ``pcmcat -s`` byte-equal to the captured
+  PCM, and ``control`` retuning one channel onto the carrier between
+  channels mid-run and reading it back (``--once``); each tone checked as
+  its channel's spectral peak on the PCM group, on the Opus group, and the
+  new tone in monitor's mix.  Where libopus is not installed the phase
+  says so and runs the legs that do not need it.
 
 Times come from CUDA events.  Phases print their
 findings line by line.
@@ -60,12 +70,15 @@ and suppresses both JSON lines; no CUDA device means exit code 2, and a
 directory without the port beside the script exit code 3.
 """
 
+import ast
 import contextlib
 import io
 import json
 import os
+import pickle
 import re
 import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -142,12 +155,50 @@ FE_CENTER, FE_IF = 146.0e6, 30e3
 FE_PERIOD_S, FE_SECONDS, FE_RADIO_BLOCKS = 1.5, 6.0, 125
 #: the SSRC of the datagrams that run packetd up to its --packets count
 FILLER_SSRC = 0xF111
+#: phase 24, the deployment chain (deploy/bankd.service -> opus-vhf ->
+#: monitor-vhf) at the live bank's line, over multicast groups: bankd's
+#: blocks; FM carriers on every (channels / max_active)-th channel from
+#: `first`, max_active - 1 of them: tones from `tone0` Hz `tone_step` apart
+#: at `dev` Hz deviation, the last one unmodulated; one more carrier midway
+#: between channels 5 and 6 with `new_tone` Hz (off the tones' grid), onto
+#: which control retunes the `retune`-th carrier's channel `retune_s` into
+#: the stream; the seconds monitor mixes; opusd's flags (deploy/opus-vhf)
+CHAIN = dict(blocks=250, first=3, tone0=400.0, tone_step=50.0, dev=1000.0,
+             new_tone=1025.0, retune=40, retune_s=1.8, monitor_s=10.0)
+OPUSD_FLAGS = ("-o", "32000", "-x")
+#: head datagrams (20 ms each) pcmcat may miss while its group join settles
+PCMCAT_JOIN_SLACK = 3
+#: a subprocess that keeps every datagram of the groups it is given, with
+#: its arrival on the host's monotonic clock, until SIGINT; then pickles them
+CAPTURE = r"""
+import pickle, select, sys, time
+from ka9q_sdr_tpu_torch.net.multicast import setup_mcast
+socks = [setup_mcast(g, output=False) for g in sys.argv[2:]]
+for s in socks:
+    s.setblocking(False)
+got = []
+print("ready", flush=True)
+try:
+    while True:
+        for s in select.select(socks, [], [], 0.2)[0]:
+            i = socks.index(s)
+            while True:
+                try:
+                    got.append((time.monotonic(), i, s.recv(9000)))
+                except BlockingIOError:
+                    break
+except KeyboardInterrupt:
+    pass
+with open(sys.argv[1], "wb") as f:
+    pickle.dump(got, f)
+"""
 
 
 def check(cond, what):
     print(("  ok   " if cond else "  FAIL ") + what, flush=True)
     if not cond:
         FAILURES.append(what)
+    return cond
 
 
 def nvidia_smi():
@@ -547,11 +598,19 @@ def sm_clock_hz():
 AGC_TIMED = ((4096, 960, 20), (8192, 7104, 5), (512, 960, 20), (1, 960, 20))
 
 
+#: the AGC step's dependent path (csrc/agc.cu `step`): mul.rn -> setp.gt.or
+#: -> selp, three instructions at the ALU's dependent-issue latency of 4
+#: cycles (Jia et al.'s microbenchmarks, Volta on; not measured here).  A
+#: floor of the function, not of the kernel: its walk takes more (below).
+AGC_CHAIN_CYCLES = 3 * 4
+
+
 def agc_walk_cycles(agc, p, clock_hz, g):
     """Cycles per sample of the kernel's walk, the slope of one block's
     warm device time (32 channels, alone on the card) from T = 1024 to
     8192: the dependent path per step as the kernel runs it, with the
-    per-tile waits, and without the launch and the ring's fill."""
+    per-tile waits, and without the launch and the ring's fill.  A
+    diagnostic beside AGC_CHAIN_CYCLES, never a bound."""
     t = {}
     for T in (1024, 8192):
         lev, gain, hang = _agc_case(32, T, g)
@@ -562,7 +621,7 @@ def agc_walk_cycles(agc, p, clock_hz, g):
 
 def phase_agc(agc):
     """AGC kernel against its plain loop: bit-equal, timed at the main
-    paths' shapes beside the bytes bound and the walk's chain floor."""
+    paths' shapes beside the bytes bound and the step's chain floor."""
     print("phase 3: AGC kernel against its plain version", flush=True)
     g = torch.Generator(device=DEV).manual_seed(SEED + 1)
     params = {
@@ -601,8 +660,9 @@ def phase_agc(agc):
     clock = sm_clock_hz()
     walk = agc_walk_cycles(agc, p, clock, g)
     print(f"  SM clock under load {clock / 1e6:.0f} MHz (nvidia-smi); the "
-          f"walk takes {walk:.2f} cycles per sample (one block, slope from "
-          f"T = 1024 to 8192)", flush=True)
+          f"step's dependent path {AGC_CHAIN_CYCLES} cycles (3 instructions "
+          f"x 4), the walk as built {walk:.2f} cycles per sample (one block, "
+          f"slope from T = 1024 to 8192)", flush=True)
     for B, T, iters in AGC_TIMED:
         lev, gain, hang = _agc_case(B, T, g)
         st = agc.AGCState(gain, hang)
@@ -616,14 +676,17 @@ def phase_agc(agc):
                           cold=True)
         # levels in, gains out, gain and hang count in and out
         bound, _ = bound_ms(B * T * 8 + B * 16)
-        chain = T * walk / clock * 1e3
+        chain = T * AGC_CHAIN_CYCLES / clock * 1e3
+        # the JSON line keeps the bytes bound (bytes or operations, and
+        # at (4096, 960) and 1980 MHz the chain floor is below it); the
+        # floor is printed beside it
         times[(B, T)] = (dev_k, plain, bound)
         print(f"  time ({B}, {T}): kernel {kern:.4f}/{kern2:.4f} ms, plain "
               f"loop {plain:.2f} ms ({T} steps) (CUDA events); device only:"
               f" kernel {warm:.4f} ms warm, {dev_k:.4f} ms cold L2 "
               f"({dev_k * 1e-3 * clock / T:.1f} cycles per sample); bytes "
-              f"bound {bound:.4f} ms, chain floor {chain:.4f} ms, so bound by "
-              f"{'bytes' if bound >= chain else 'the chain'}; kernel (cold) "
+              f"bound {bound:.4f} ms, chain floor {chain:.4f} ms "
+              f"({'below' if chain < bound else 'above'} it); kernel (cold) "
               f"at {bound / dev_k:.0%} of the bytes bound, "
               f"{chain / dev_k:.0%} of the chain floor", flush=True)
     return max_err, times
@@ -1589,6 +1652,7 @@ def phase_bankd_live(bankd, native, ffill, smi):
     check(split is not None, "KA9Q_BANKD_TIMING split printed")
     if split is not None:
         print_split("bankd -I --max-active", split, smi)
+    return split
 
 
 def phase_radio(radio, receiver, modulate, io_mod, status, ffill, agc, smi,
@@ -2063,6 +2127,465 @@ def phase_aprs_radio(mods, ffill, smi, tmp):
     os.unlink(rec)
 
 
+def chain_second(fs, L, carriers):
+    """One second of phase 24's I/Q, made on the device from the seed: a
+    little complex noise plus FM carriers (freq Hz, tone Hz or None) at
+    CHAIN['dev'] deviation, each tone at a random phase (tones in phase
+    on a 50 Hz grid would sum to a 20 ms pulse train in a mix).  Every
+    carrier and tone is a whole number of Hz, so the second repeats
+    seamlessly."""
+    out = []
+    phases = np.random.default_rng(SEED + 24).uniform(0, 1, len(carriers))
+    for b in range(fs // L):
+        g = torch.Generator(device=DEV).manual_seed(SEED + 24 + b)
+        n = b * L + torch.arange(L, device=DEV, dtype=torch.float64)
+        x = 0.003 * torch.randn((L, 2), generator=g, device=DEV,
+                                dtype=torch.float32).to(torch.float64)
+        for (f, tone), p in zip(carriers, phases):
+            ph = 2 * np.pi * torch.frac(n * (f / fs))
+            if tone:
+                ph = ph + CHAIN["dev"] / tone * torch.sin(
+                    2 * np.pi * torch.frac(n * (tone / fs) + p))
+            x[:, 0] += 0.02 * torch.cos(ph)
+            x[:, 1] += 0.02 * torch.sin(ph)
+        out.append(torch.clamp(x * 32767.0, -32768, 32767).to(torch.int16))
+    return torch.cat(out).cpu().numpy().reshape(-1)
+
+
+def rtp_sessions(caps, group, rtp):
+    """Per SSRC, the (arrival, header, payload) of one captured group's
+    datagrams, in arrival order."""
+    out = {}
+    for t, i, d in caps:
+        if i != group:
+            continue
+        try:
+            h, off = rtp.RTPHeader.from_bytes(d)
+        except ValueError:
+            continue
+        out.setdefault(h.ssrc, []).append((t, h, rtp.rtp_payload(h, d, off)))
+    return out
+
+
+def laid_out(items, t_lo, t_hi):
+    """The float audio of (arrival, RTP timestamp, samples) items that
+    arrived in [t_lo, t_hi), placed on the RTP clock (zeros in gaps)."""
+    sel = [(ts, a) for t, ts, a in items if t_lo <= t < t_hi]
+    if not sel:
+        return np.zeros(0)
+    ts0 = min(ts for ts, _ in sel)
+    out = np.zeros(max(ts - ts0 + len(a) for ts, a in sel))
+    for ts, a in sel:
+        out[ts - ts0:ts - ts0 + len(a)] = a
+    return out
+
+
+def tone_peak(audio, rate=48000.0):
+    """The strongest line above 100 Hz, and its level in dB over the
+    median bin."""
+    if len(audio) < 256:
+        return float("nan"), 0.0
+    spec = np.abs(np.fft.rfft(audio * np.hanning(len(audio))))
+    f = np.fft.rfftfreq(len(audio), 1.0 / rate)
+    spec, f = spec[f >= 100.0], f[f >= 100.0]
+    i = int(np.argmax(spec))
+    return f[i], 20 * np.log10(spec[i] / max(np.median(spec), 1e-30))
+
+
+def line_db(audio, hz, rate=48000.0):
+    """The level of the bin nearest `hz`, in dB over the median bin."""
+    spec = np.abs(np.fft.rfft(audio * np.hanning(len(audio))))
+    i = int(round(hz * len(audio) / rate))
+    return 20 * np.log10(spec[i - 1:i + 2].max()
+                         / max(np.median(spec), 1e-30))
+
+
+def proc_cpu_s(pid):
+    """User + system CPU seconds of a process, from /proc/<pid>/stat."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def stop_procs(procs):
+    """SIGINT each subprocess (the daemons' Ctrl-C), then kill what is
+    left after 10 s."""
+    for p in procs.values():
+        if p.poll() is None:
+            p.send_signal(signal.SIGINT)
+    for p in procs.values():
+        try:
+            p.wait(10.0)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(5.0)
+
+
+def phase_chain(mods, ffill, smi, live_split, tmp):
+    """The deployment chain on the card: bankd -I (in-process, fed at the
+    wire rate) -> opusd -> monitor, with pcmcat on the PCM group and
+    control retuning a channel mid-run, over multicast groups."""
+    t_phase = time.monotonic()
+    bankd, native, control, mc, rtp, opus_codec = (mods[k] for k in (
+        "bankd", "native", "control", "multicast", "rtp", "opus_codec"))
+    fs, n_ch, n_act = LIVE["samprate"], LIVE["channels"], LIVE["max_active"]
+    L, _ = bankd.derive_geometry(fs)
+    blocks = CHAIN["blocks"]
+    opus = opus_codec.OPUS_AVAILABLE
+    print(f"phase 24: the deployment chain, bankd -I ({n_ch} FM channels at "
+          f"{fs / 1e6:.3f} Msps, --max-active {n_act}, {blocks} blocks) -> "
+          f"opusd {' '.join(OPUSD_FLAGS)} -> monitor, pcmcat on the PCM "
+          "group, control retuning a channel mid-run", flush=True)
+    if not opus:
+        print("  opus: libopus absent on this machine", flush=True)
+        print("  the Opus legs wait on the library: opusd and its checks "
+              "(native engine, each tone on the Opus group, DTX), its CPU, "
+              "counters and latency; pcmcat, monitor and control run on the "
+              "PCM group, and the retune is read there", flush=True)
+    base = free_ports(8)
+    if not check(multicast_loopback(base + 7, mc),
+                 "a datagram sent to a multicast group on this host arrived "
+                 "(the chain runs over groups)"):
+        return
+    g_pcm = f"239.77.24.1:{base + 1}"        # status and commands on +2
+    g_opus = f"239.77.24.2:{base + 5}"
+    freqs = np.linspace(-0.45 * fs, 0.45 * fs, n_ch, endpoint=False)
+    step = n_ch // n_act
+    chans = [CHAIN["first"] + step * k for k in range(n_act - 1)]
+    tones = {c: CHAIN["tone0"] + CHAIN["tone_step"] * k
+             for k, c in enumerate(chans[:-1])}
+    quiet, moved = chans[-1], chans[min(CHAIN["retune"], len(chans) - 2)]
+    f_new = (freqs[5] + freqs[6]) / 2
+    ssrc = moved + 1
+    sec = chain_second(fs, L, [(freqs[c], tones.get(c)) for c in chans]
+                       + [(f_new, CHAIN["new_tone"])])
+    print(f"  {len(tones)} tone carriers ({CHAIN['tone0']:.0f}-"
+          f"{max(tones.values()):.0f} Hz), ch {quiet} unmodulated, "
+          f"{CHAIN['new_tone']:.0f} Hz at {f_new:.0f} Hz between ch 5 and "
+          f"6; ch {moved} (SSRC {ssrc}, {tones[moved]:.0f} Hz) moves there",
+          flush=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    paths = {k: os.path.join(tmp, f"chain-{k}") for k in (
+        "caps", "pcmcat", "mix", "monitor.err", "opusd.err")}
+    files, procs, res = [], {}, {}
+
+    def spawn(name, args, out=subprocess.DEVNULL, err=subprocess.DEVNULL):
+        procs[name] = subprocess.Popen([sys.executable, *args], cwd=root,
+                                       stdout=out, stderr=err)
+        return procs[name]
+
+    def log(name, mode="wb"):
+        files.append(open(paths[name], mode))
+        return files[-1]
+
+    bound, stop = threading.Event(), threading.Event()
+    rx_stats, cpu = {}, []
+    real_rx = native.RTPReceiver
+
+    class BoundReceiver(real_rx):
+        """bankd's receive engine: tells the sender when it has bound,
+        and keeps its counters when the daemon closes it."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            bound.set()
+
+        def close(self):
+            if self._h:
+                rx_stats.update(self.stats())
+            super().close()
+
+    def send():
+        """Paced at the wire rate from the moment bankd has bound."""
+        if not bound.wait(DAEMON_WAIT_S):
+            return
+        pkts = -(-len(sec) // 2 // 2048)
+        res["t_send"] = time.monotonic()
+        while not stop.is_set():
+            tx = native.RTPSender("127.0.0.1", base, samprate=fs, ssrc=24)
+            while not stop.is_set():
+                if tx.send(sec, pkt_samples=2048) < pkts:
+                    break
+            tx.close()
+            stop.wait(0.02)
+
+    def sample_cpu():
+        """The listeners' CPU seconds every 0.25 s while they run."""
+        while not stop.is_set():
+            now = time.monotonic()
+            for name in ("monitor", "opusd"):
+                if name in procs and procs[name].poll() is None:
+                    try:
+                        cpu.append((name, now, proc_cpu_s(procs[name].pid)))
+                    except OSError:
+                        pass
+            stop.wait(0.25)
+
+    daemon = threading.Thread(target=lambda: res.__setitem__(
+        "bankd", bankd.main(["-I", f"127.0.0.1:{base}", "-R", g_pcm, "-r",
+                             str(fs), "--channels", str(n_ch), "-m", "FM",
+                             "--max-active", str(n_act), "--blocks",
+                             str(blocks), *daemon_flags()])), daemon=True)
+    threads = [threading.Thread(target=send, daemon=True)]
+
+    def orchestrate():
+        """bankd and the sender start; control retunes `moved` at
+        retune_s into the stream and reads it back."""
+        daemon.start()
+        threads[0].start()
+        if not bound.wait(DAEMON_WAIT_S):
+            return
+        while "t_send" not in res and daemon.is_alive():
+            time.sleep(0.01)
+        t_retune = res.get("t_send", 0.0) + CHAIN["retune_s"]
+        while time.monotonic() < t_retune and daemon.is_alive():
+            time.sleep(0.005)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res["t_cmd"] = time.monotonic()
+            res["tune"] = control.main([g_pcm, "--ssrc", str(ssrc),
+                                        f"--tune={f_new:.0f}"])
+            t0 = time.monotonic()
+            res["once"] = control.main([g_pcm, "--ssrc", str(ssrc),
+                                        "--once", "--seconds", "4"])
+            res["once_s"] = time.monotonic() - t0
+        res["control_out"] = out.getvalue()
+        daemon.join(DAEMON_WAIT_S + blocks * 0.02)
+
+    try:
+        cap = spawn("capture", ["-c", CAPTURE, paths["caps"], g_pcm,
+                                g_opus], out=subprocess.PIPE)
+        ready = cap.stdout.readline().strip() == b"ready"
+        spawn("pcmcat", ["-m", "ka9q_sdr_tpu_torch.apps.pcmcat", g_pcm,
+                         "-s", str(ssrc)], out=log("pcmcat"))
+        # monitor mixes from before the stream to after it: its first
+        # sound is the first PCM datagram, which places the retune
+        spawn("monitor", ["-m", "ka9q_sdr_tpu_torch.apps.monitor", g_pcm,
+                          "-v", "--seconds", str(CHAIN["monitor_s"])],
+              out=log("mix"), err=log("monitor.err"))
+        if opus:
+            spawn("opusd", ["-m", "ka9q_sdr_tpu_torch.apps.opusd", "-I",
+                            g_pcm, "-R", g_opus, *OPUSD_FLAGS, "-v"],
+                  err=log("opusd.err"))
+        threads.append(threading.Thread(target=sample_cpu, daemon=True))
+        threads[-1].start()
+        time.sleep(2.5)                  # the subprocesses join their groups
+        native.RTPReceiver = BoundReceiver
+        ffill.launches = 0
+        _, err, wall = run_daemon(orchestrate)
+        launches = ffill.launches
+        try:
+            procs["monitor"].wait(CHAIN["monitor_s"] + 10.0)
+        except subprocess.TimeoutExpired:
+            pass
+        time.sleep(0.5)                  # the last datagrams land
+    finally:
+        native.RTPReceiver = real_rx
+        stop.set()
+        for t in threads:
+            t.join(5.0)
+        stop_procs(procs)
+        for f in files:
+            f.close()
+    check(ready, "the capture process joined the PCM and Opus groups")
+    check(res.get("bankd") == 0,
+          f"bankd -I served {blocks} blocks and returned {res.get('bankd')} "
+          f"({wall:.2f} s wall, build and warm-up included)")
+    check(launches >= 2 * blocks,
+          f"ffill launches {launches} >= 2 per block x {blocks}")
+    split = timing_split(err)
+    check(split is not None and split["blocks"] == blocks
+          and rx_stats.get("overruns", 1) == 0
+          and rx_stats.get("drops", 1) == 0,
+          f"bankd kept the wire rate: {rx_stats.get('blocks')} blocks "
+          f"assembled, {rx_stats.get('drops')} I/Q packets lost, "
+          f"{rx_stats.get('overruns')} ring overruns")
+    if split is not None:
+        print_split("bankd -I --max-active (chain)", split, smi)
+    if live_split is not None:
+        print_split("bankd -I --max-active (phase 20, this call)",
+                    live_split, smi)
+    if "t_send" not in res or "t_cmd" not in res:
+        check(False, "the stream started and control ran")
+        return
+    t_send, t_cmd = res["t_send"], res["t_cmd"]
+    t_stop = t_send + blocks * L / fs
+
+    with open(paths["caps"], "rb") as f:
+        caps = pickle.load(f)
+    pcm = rtp_sessions(caps, 0, rtp)
+    want = {c + 1 for c in tones}
+    check(want <= set(pcm) <= {c + 1 for c in chans},
+          f"PCM on the group from {len(pcm)} SSRCs: every tone channel's "
+          f"{len(want)}, none off the carriers")
+    pcm_items = {s: [(t, h.timestamp,
+                      np.frombuffer(p, ">i2").astype(np.float64) / 32767.0)
+                     for t, h, p in v] for s, v in pcm.items()}
+    streams = {"PCM": pcm_items}
+    if opus:
+        ops = rtp_sessions(caps, 1, rtp)
+        dec_items = {}
+        for s, v in ops.items():
+            dec = opus_codec.OpusDecoder()
+            dec_items[s] = [(t, h.timestamp, dec.decode(p)[:, 0]
+                             .astype(np.float64)) for t, h, p in v]
+        streams["Opus"] = dec_items
+        err_o = open(paths["opusd.err"]).read()
+        stats = [ln for ln in err_o.splitlines() if ln.startswith("{")]
+        check(stats and "falling back" not in err_o,
+              f"opusd ran the native engine ({len(stats)} counter lines "
+              "from -v, no fallback to the Python loop)")
+    for name, items in streams.items():
+        before = (t_send + 0.5, t_cmd)
+        after = (t_cmd + 0.6, t_stop + 1.0)
+        bad, worst = [], float("inf")
+        for c, tone in tones.items():
+            f, db = tone_peak(laid_out(items.get(c + 1, []), *before))
+            worst = min(worst, db)
+            if not (abs(f - tone) < 3.0 and db >= 20.0):
+                bad.append((c, round(f, 1), round(db, 1)))
+        check(not bad, f"{name}: every tone SSRC ({len(tones)}) shows its "
+              f"tone as the peak before the retune, >= 20 dB over the median "
+              f"bin (least {worst:.1f} dB){'; off: ' + str(bad[:5]) if bad else ''}")
+        kept = []
+        for c, tone in tones.items():
+            if c == moved:
+                continue
+            f, db = tone_peak(laid_out(items.get(c + 1, []), *after))
+            if not (abs(f - tone) < 3.0 and db >= 20.0):
+                kept.append((c, round(f, 1), round(db, 1)))
+        f_b, db_b = tone_peak(laid_out(items.get(ssrc, []), *before))
+        f_a, db_a = tone_peak(laid_out(items.get(ssrc, []), *after))
+        check(abs(f_b - tones[moved]) < 3.0
+              and abs(f_a - CHAIN["new_tone"]) < 3.0 and db_a >= 20.0
+              and not kept,
+              f"{name}: SSRC {ssrc} peaks at {f_b:.1f} Hz before the retune "
+              f"and {f_a:.1f} Hz ({db_a:.1f} dB) after it; every other tone "
+              f"SSRC keeps its tone{'; not: ' + str(kept[:5]) if kept else ''}")
+        # the command to the first 10 ms of the new tone on the wire
+        new = None
+        for t, _, a in items.get(ssrc, []):
+            if t > t_cmd and len(a) >= 240:
+                spec = np.abs(np.fft.rfft(a * np.hanning(len(a)), 8192))
+                if abs(np.argmax(spec) * 48000 / 8192
+                       - CHAIN["new_tone"]) < 60.0:
+                    new = t
+                    break
+        print(f"  {name}: control command to SSRC {ssrc}'s new tone on the "
+              f"group: " + (f"{(new - t_cmd) * 1e3:.1f} ms" if new else
+                            "not seen") + f" (host clock) [{smi}]",
+              flush=True)
+    if opus:
+        # opusd's output against the Python transcoder (deploy/opus-vhf's
+        # flags) on the PCM datagrams the capture saw: this holds its DTX
+        # to libopus's own decision on the same audio
+        same, sent = 0, {}
+        for s, v in pcm.items():
+            ref = []
+            tc = mods["transcode"].OpusTranscoder(send=ref.append,
+                                                  bitrate=32000, dtx=True)
+            for _, h, p in v:
+                tc.feed_packet(h.to_bytes() + p)
+            got_o = [h.to_bytes() + p for _, h, p in ops.get(s, [])]
+            same += got_o == ref
+            sent[s] = len(got_o)
+        q = quiet + 1
+        n_frames = sum(len(p) // 2 for _, _, p in pcm.get(q, [])) // 960
+        check(same == len(pcm),
+              f"Opus: opusd's stream equals the Python transcoder's on the "
+              f"captured PCM for {same} of {len(pcm)} SSRCs; the unmodulated "
+              f"SSRC {q} sent {sent.get(q)} packets for {n_frames} frames of "
+              f"its PCM ({n_frames - sent.get(q, 0)} suppressed by DTX)")
+        last = ast.literal_eval(stats[-1]) if stats else {}
+        print(f"  opusd: packets_in {last.get('packets_in')}, packets_out "
+              f"{last.get('packets_out')}, frames {last.get('frames')}, "
+              f"resets {last.get('resets')}, sessions "
+              f"{last.get('sessions')} [{smi}]", flush=True)
+        lat = []
+        for s, v in ops.items():
+            starts = {h.timestamp: t for t, h, _ in pcm.get(s, [])}
+            if not starts:
+                continue
+            ts0 = min(starts)
+            ends = {ts + 479: t for ts, t in starts.items()}
+            for t, h, _ in v:
+                t_pcm = ends.get(ts0 + h.timestamp + 959)
+                if t_pcm is not None:
+                    lat.append(t - t_pcm)
+        if lat:
+            print(f"  opusd added latency: median "
+                  f"{np.median(lat) * 1e3:.3f} ms, p99 "
+                  f"{np.percentile(lat, 99) * 1e3:.3f} ms over {len(lat)} "
+                  "frames (Opus packet arrival less the arrival of the PCM "
+                  f"packet that completes its frame, host clock) [{smi}]",
+                  flush=True)
+    for name in ("monitor", "opusd"):
+        win = [(t, c) for n, t, c in cpu
+               if n == name and t_send + 1.0 <= t <= t_stop - 0.2]
+        if len(win) >= 2:
+            (ta, ca), (tb, cb) = win[0], win[-1]
+            print(f"  {name}: {(cb - ca) / (tb - ta) / len(pcm) * 1e3:.3f} "
+                  f"ms of CPU per session-second (/proc, {tb - ta:.2f} s "
+                  f"steady window, {len(pcm)} sessions) [{smi}]", flush=True)
+    text = res.get("control_out", "")
+    check(res.get("tune") == 0 and res.get("once") == 0
+          and f"Freq {f_new:,.3f} Hz" in text,
+          f"control --tune and --once returned {res.get('tune')}, "
+          f"{res.get('once')}; --once shows "
+          f"{[ln for ln in text.splitlines() if ln.startswith('Freq')]} "
+          f"after {res.get('once_s', float('nan')):.2f} s")
+    # pcmcat -s against the captured payloads, gaps zero-filled, from the
+    # first datagram pcmcat itself took: it joined 2.5 s before the
+    # stream, so it may miss at most PCMCAT_JOIN_SLACK at the head
+    def pcmcat_bytes(pkts):
+        state, out = rtp.RTPState(), bytearray()
+        for _, h, p in pkts:
+            gap = rtp.rtp_process(state, h, len(p) // 2)
+            if gap < 0:
+                continue
+            out += bytes(2 * min(gap, 48000))
+            out += np.frombuffer(p, ">i2").astype(np.int16).tobytes()
+        return bytes(out)
+
+    got = open(paths["pcmcat"], "rb").read()
+    mine = pcm.get(ssrc, [])
+    skip = next((k for k in range(min(PCMCAT_JOIN_SLACK + 1, len(mine)))
+                 if pcmcat_bytes(mine[k:]) == got), None)
+    check(len(got) > 0 and skip is not None,
+          f"pcmcat -s {ssrc} wrote {len(got)} bytes, equal sample for sample "
+          f"to the {len(mine)} captured payloads (gaps filled) from payload "
+          f"{skip} on, where it joined (at most {PCMCAT_JOIN_SLACK} missed)")
+    # monitor: length, the new tone in the mix, its summary
+    mix = np.frombuffer(open(paths["mix"], "rb").read(), np.int16)
+    chunks = len(mix) / 2 / 960
+    check(abs(chunks - CHAIN["monitor_s"] / 0.02) <= 2,
+          f"monitor --seconds {CHAIN['monitor_s']} wrote {chunks:.1f} "
+          f"chunks of 20 ms 48 kHz stereo ({CHAIN['monitor_s'] / 0.02:.0f} "
+          "+- 2)")
+    left = mix[0::2].astype(np.float64) / 32767.0
+    # the mix's first sound is the first PCM datagram's arrival plus the
+    # playout delay; the retune and the stream's end sit after it on the
+    # host clock
+    t_first = min((v[0][0] for v in pcm.values() if v), default=t_send)
+    i0 = int(np.argmax(left != 0.0))
+    at = lambda t: i0 + int((t - t_first) * 48000)          # noqa: E731
+    pre = left[i0 + 14400:max(at(t_cmd) - 14400, i0 + 14400)]
+    post = left[at(t_cmd) + 28800:at(t_stop)]
+    if len(pre) >= 4800 and len(post) >= 4800:
+        lb, la = line_db(pre, CHAIN["new_tone"]), line_db(post,
+                                                          CHAIN["new_tone"])
+    else:
+        lb = la = float("nan")
+    check(la >= 20.0 and la >= lb + 10.0,
+          f"monitor's mix shows the new {CHAIN['new_tone']:.0f} Hz tone "
+          f"after the retune: {la:.1f} dB over the median bin ({lb:.1f} dB "
+          "before)")
+    summary = open(paths["monitor.err"]).read().strip().splitlines()
+    print(f"  {summary[-1] if summary else 'monitor: no summary'} [{smi}]",
+          flush=True)
+    print(f"  phase 24 took {time.monotonic() - t_phase:.1f} s", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -2085,6 +2608,8 @@ def main():
         from ka9q_sdr_tpu_torch.decode import afsk, ax25
         from ka9q_sdr_tpu_torch.models import frontend as fe_model
         from ka9q_sdr_tpu_torch.net import multicast, rtp
+        from ka9q_sdr_tpu_torch.apps import control
+        from ka9q_sdr_tpu_torch.audio import opus_codec, transcode
     except ModuleNotFoundError as e:
         print(f"chip_smoke: the port is not importable ({e}); run this "
               "script from the root of a checkout", file=sys.stderr)
@@ -2194,16 +2719,19 @@ def main():
         phase_bankd_mixed(bankd, bank_mod, io_mod, status, ffill, agc, smi,
                           tmp)
         torch.cuda.empty_cache()
-        phase_bankd_live(bankd, native, ffill, smi)
+        live_split = phase_bankd_live(bankd, native, ffill, smi)
         phase_radio(radio, receiver, modulate, io_mod, status, ffill, agc,
                     smi, tmp)
         mods = dict(bankd=bankd, native=native, iqplay=iqplay,
                     packetd=packetd, aprs=aprs_app, ax25=ax25, afsk=afsk,
                     io=io_mod, rtp=rtp, frontend=frontend, fe_model=fe_model,
                     radio=radio, iqrecord=iqrecord, modulate_app=modulate_app,
-                    modulate=modulate, status=status, multicast=multicast)
+                    modulate=modulate, status=status, multicast=multicast,
+                    control=control, opus_codec=opus_codec,
+                    transcode=transcode)
         phase_aprs_bank(mods, ffill, smi, tmp)
         phase_aprs_radio(mods, ffill, smi, tmp)
+        phase_chain(mods, ffill, smi, live_split, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2213,7 +2741,7 @@ def main():
             print(f"  {f}", flush=True)
         return 1
     k_ms, p_ms, k_bound = ktimes[(4096, 960, torch.complex64)]
-    a_ms, a_plain, a_bound = agc_times[(4096, 960)]    # a_plain: CUDA events
+    a_ms, a_plain, a_bound = agc_times[(4096, 960)]   # a_plain: CUDA events
     s_ms, s_plain, s_cufft, s_bound = pst_times
     print(smi, flush=True)
     print(json.dumps({"kernels": [{

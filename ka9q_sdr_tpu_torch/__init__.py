@@ -18,13 +18,18 @@ layout and public names so each counterpart sits under the same path:
                  assembly and I/Q recordings.
 - ``net``      — RTP, the TLV status/command protocol, multicast, RTCP and
                  the legacy in-band status header.
-- ``native``   — the C++ RTP I/Q engine and PCM fan-out (g++ at first use).
+- ``native``   — the C++ RTP I/Q engine, PCM fan-out and PCM -> Opus
+                 transcoder (g++ at first use).
 - ``decode``   — the AFSK-1200 modem, AX.25 and APRS (host numpy).
+- ``audio``    — the libopus binding, the Opus transcoder sessions and the
+                 playout mixer (host only).
 - ``apps``     — the daemons: ``bankd`` and ``radio``; ``frontend``,
                  ``iqplay``, ``iqrecord``, ``modulate``, ``pcmsend``;
-                 ``packetd``, ``aprs`` and ``aprsfeed``.
-- ``utils``    — the mode table, frequency parsing, state files, the
-                 daemons' device choice.
+                 ``packetd``, ``aprs`` and ``aprsfeed``; the listening and
+                 control end, ``opusd``, ``opussend``, ``pcmcat``,
+                 ``monitor``, ``control`` and ``display``.
+- ``utils``    — the mode table, the band plan, frequency parsing, state
+                 files, the daemons' device choice.
 - ``interop``  — carries state between the two packages as numpy trees.
 
 It imports torch and numpy and never jax, nor anything of the JAX package:

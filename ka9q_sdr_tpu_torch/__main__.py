@@ -9,10 +9,16 @@ APPS = {
     "iqplay": "replay recordings as RTP I/Q (iqplay.c)",
     "iqrecord": "record RTP sessions with xattr metadata (iqrecord.c)",
     "modulate": "audio -> modulated I/Q test signals (modulate.c)",
+    "pcmcat": "PCM RTP -> raw s16 stdout (pcmcat.c)",
     "pcmsend": "raw s16 stdin -> PCM RTP (pcmsend.c)",
+    "opusd": "PCM -> Opus transcoder (opus.c)",
+    "opussend": "raw s16 stdin -> Opus RTP (opussend.c)",
+    "monitor": "multi-stream jitter-buffered mixer (monitor.c)",
     "packetd": "AFSK/AX.25 packet demodulator (packet.c)",
     "aprs": "APRS position monitor with look angles (aprs.c)",
     "aprsfeed": "APRS-IS i-gate (aprsfeed.c)",
+    "control": "TLV status dashboard + remote tune (control.c)",
+    "display": "interactive curses tuning UI (display.c)",
 }
 
 

@@ -13,13 +13,15 @@
 //
 // What bounds it.  The recurrence is serial in t and independent per
 // channel, so one thread carries one channel, and the time is the larger
-// of two floors: the chain, T steps of the walk's dependent path (about 30
-// cycles a step: mul -> setp.gt.or -> a multiply predicated on it, see
-// `step`, plus the per-tile waits), and the bytes, 8 per sample (levels
-// in, gains out) over 3.35 TB/s.  The chain sets it at (4096, 960) (0.0145
-// against 0.0094 ms) and wherever B is smaller; the bytes at (8192, 7104)
-// (0.139 against 0.107 ms).  chip_smoke.py phase 3 prints both floors, and
-// the cycles per step it measures, for every timed shape.
+// of two floors: the chain, T steps of the function's dependent path
+// (mul.rn -> setp.gt.or -> selp, see `step`: 12 cycles a step at the
+// ALU's 4-cycle latency), and the bytes, 8 per sample (levels in, gains
+// out) over 3.35 TB/s.  At 1980 MHz the bytes set it at (4096, 960) (0.0094
+// against 0.0058 ms) and (8192, 7104) (0.139 against 0.043 ms); the chain
+// where B is small ((512, 960), (1, 960)).  The walk as built takes about
+// 30 cycles a step, the per-tile waits included.  chip_smoke.py phase 3
+// prints both floors, and the cycles per step it measures, for every
+// timed shape.
 //
 // Design for Hopper.  A block of 288 threads owns 32 channels: warp 0 is
 // the walker, one lane per channel, and warps 1-8 are helpers.  They

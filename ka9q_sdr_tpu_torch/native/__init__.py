@@ -1,13 +1,13 @@
 """Native C++ runtime: the high-rate RTP I/Q engine (``rtp_engine.cc``).
 
-A copy of the JAX package's engine limited to what the serving daemons
-use: the I/Q receive ring (`RTPReceiver`), the paced I/Q sender
-(`RTPSender`), the bank's PCM fan-out (`PCMFanoutSender`) and the wire
-parser probe (`parse_probe`).  It is compiled with g++ at first use (plain C
-ABI, loaded with ctypes) into ``build/`` at the root of the checkout, named
-by the hash of its source, so an edited source rebuilds.  Where no compiler
-is present, ``NATIVE_AVAILABLE`` is False and the daemons take the Python
-transport.
+A copy of the JAX package's engine: the I/Q receive ring (`RTPReceiver`),
+the paced I/Q sender (`RTPSender`), the bank's PCM fan-out
+(`PCMFanoutSender`), the PCM -> Opus transcoder that ``opusd`` runs
+(`NativeOpusTranscoder`) and the wire parser probe (`parse_probe`).  It
+is compiled with g++ at first use (plain C ABI, loaded with ctypes) into
+``build/`` at the root of the checkout, named by the hash of its source,
+so an edited source rebuilds.  Where no compiler is present,
+``NATIVE_AVAILABLE`` is False and the daemons take the Python transport.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import numpy as np
 
 __all__ = [
     "NATIVE_AVAILABLE", "RTPReceiver", "RTPSender", "PCMFanoutSender",
-    "parse_probe", "build",
+    "NativeOpusTranscoder", "parse_probe", "build",
 ]
 
 _SRC = Path(__file__).resolve().parent / "rtp_engine.cc"
@@ -52,7 +52,7 @@ def build(force: bool = False) -> bool:
         return True
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-o", str(tmp),
-           str(_SRC), "-lpthread"]
+           str(_SRC), "-lpthread", "-ldl"]
     try:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         subprocess.run(cmd, check=True, capture_output=True)
@@ -122,6 +122,16 @@ def _load():
         lib.pcm_tx_set_ssrc.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
         ]
+        lib.opus_tx_create.restype = ctypes.c_void_p
+        lib.opus_tx_create.argtypes = [
+            ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ]
+        lib.opus_tx_stats.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
+        ]
+        lib.opus_tx_destroy.argtypes = [ctypes.c_void_p]
         _lib = lib
         return lib
 
@@ -308,6 +318,74 @@ class PCMFanoutSender:
     def close(self):
         if self._h:
             self._lib.pcm_tx_destroy(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class NativeOpusTranscoder:
+    """Fully native PCM->Opus multicast transcoder (opus.c main loop).
+
+    One C++ thread runs recvmmsg, session demux by (sender, SSRC),
+    resequencing, encode and send, so the interpreter carries none of the
+    per-packet work; only libopus itself remains.  Semantics are held
+    byte-identical to the Python transcoder (``audio/transcode.py``) by
+    tests/test_torch_audio.py."""
+
+    def __init__(
+        self,
+        input_group: str,
+        output_group: str,
+        input_port: int = 5004,
+        output_port: int = 5004,
+        bitrate: int = 32000,
+        frame_ms: float = 20.0,
+        dtx: bool = False,
+        fec: int = 0,
+        ttl: int = 1,
+        max_sessions: int = 1024,
+        complexity: int = -1,
+    ):
+        from ..audio.transcode import LEGAL_FRAMES_MS
+        if frame_ms not in LEGAL_FRAMES_MS:
+            raise ValueError(f"illegal Opus frame {frame_ms} ms")
+        self._lib = _load()
+        self._h = None
+        for in_cand in _resolve_candidates(input_group):
+            for out_cand in _resolve_candidates(output_group):
+                self._h = self._lib.opus_tx_create(
+                    in_cand.encode(), input_port, out_cand.encode(),
+                    output_port, bitrate, int(48000 * frame_ms / 1000),
+                    int(dtx), fec, ttl, max_sessions, complexity,
+                )
+                if self._h:
+                    break
+            if self._h:
+                break
+        if not self._h:
+            raise OSError(
+                f"opus_tx_create failed ({input_group}:{input_port} -> "
+                f"{output_group}:{output_port}; libopus present?)"
+            )
+
+    def stats(self) -> dict:
+        buf = (ctypes.c_longlong * 7)()
+        self._lib.opus_tx_stats(self._h, buf)
+        return dict(
+            zip(
+                ("packets_in", "packets_out", "frames", "sessions", "dupes",
+                 "resets", "rejected"),
+                list(buf),
+            )
+        )
+
+    def close(self):
+        if self._h:
+            self._lib.opus_tx_destroy(self._h)
             self._h = None
 
     def __del__(self):

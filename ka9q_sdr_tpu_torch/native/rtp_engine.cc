@@ -11,8 +11,9 @@
 // beyond a Python recv loop, a few percent of one core here.
 //
 // A matching sender paces int16 I/Q packets (iqplay's loop, iqplay.c:35-108)
-// at wire rate with the legacy 24-byte status header, and a multichannel
-// PCM fan-out packetises a whole bank's output per block (audio.c).
+// at wire rate with the legacy 24-byte status header, a multichannel PCM
+// fan-out packetises a whole bank's output per block (audio.c), and a
+// PCM -> Opus transcoder runs opus.c's main loop on a thread of its own.
 //
 // Plain C ABI for ctypes; no Python headers needed.
 
@@ -21,6 +22,7 @@
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <dlfcn.h>
 #include <net/if.h>
 #include <netdb.h>
 #include <netinet/in.h>
@@ -28,8 +30,10 @@
 #include <sys/time.h>
 #include <unistd.h>
 
+#include <array>
 #include <atomic>
 #include <condition_variable>
+#include <map>
 #include <mutex>
 #include <thread>
 #include <vector>
@@ -191,6 +195,26 @@ int make_mcast_tx(const char* group, int port, int ttl) {
   }
   join_own_group(fd, &ss);  // best-effort on the send side
   return fd;
+}
+
+// Family-agnostic sender identity for session demux keys: the v4 address
+// word, or an FNV-1a fold of the 16 v6 bytes.
+inline uint32_t sender_hash(const sockaddr_storage& ss) {
+  if (ss.ss_family == AF_INET6) {
+    auto* s6 = (const sockaddr_in6*)&ss;
+    uint32_t h = 2166136261u;
+    for (int i = 0; i < 16; i++) {
+      h ^= s6->sin6_addr.s6_addr[i];
+      h *= 16777619u;
+    }
+    return h;
+  }
+  return ((const sockaddr_in*)&ss)->sin_addr.s_addr;
+}
+
+inline uint32_t sender_port(const sockaddr_storage& ss) {
+  return ss.ss_family == AF_INET6 ? ((const sockaddr_in6*)&ss)->sin6_port
+                                  : ((const sockaddr_in*)&ss)->sin_port;
 }
 
 struct RxEngine {
@@ -395,6 +419,245 @@ long long now_us() {
   gettimeofday(&tv, nullptr);
   return (long long)tv.tv_sec * 1000000 + tv.tv_usec;
 }
+
+// ---------------------------------------------------------------------
+// Native Opus transcoder: the opus.c main loop (opus.c:246-397) in C++.
+// Everything but libopus itself runs here on one thread: recvmmsg
+// batching, session demux by (sender, SSRC), rtp_process resequencing,
+// talk-spurt/gap encoder resets, DTX suppression, marker bits -- the
+// semantics of audio/transcode.py, byte for byte.
+//
+// libopus may ship without its development headers; its stable ABI is
+// declared here and resolved with dlopen("libopus.so.0").  opus_tx_create
+// returns null if the library is absent.
+
+constexpr int PCM_STEREO_PT = 10;   // multicast.h:19-24
+constexpr int PCM_MONO_PT = 11;
+constexpr int OPUS_PT = 111;
+constexpr int OPUS_APPLICATION_AUDIO = 2049;
+constexpr int OPUS_SET_BITRATE = 4002;
+constexpr int OPUS_SET_COMPLEXITY = 4010;
+constexpr int OPUS_SET_INBAND_FEC = 4012;
+constexpr int OPUS_SET_PACKET_LOSS_PERC = 4014;
+constexpr int OPUS_SET_DTX = 4016;
+constexpr int OPUS_RESET_STATE = 4028;
+
+struct OpusApi {
+  void* dl = nullptr;
+  void* (*encoder_create)(int32_t, int, int, int*) = nullptr;
+  int32_t (*encode_float)(void*, const float*, int, unsigned char*,
+                          int32_t) = nullptr;
+  int (*encoder_ctl)(void*, int, ...) = nullptr;
+  void (*encoder_destroy)(void*) = nullptr;
+
+  bool load() {
+    if (dl) return true;
+    dl = dlopen("libopus.so.0", RTLD_NOW | RTLD_GLOBAL);
+    if (!dl) dl = dlopen("libopus.so", RTLD_NOW | RTLD_GLOBAL);
+    if (!dl) return false;
+    encoder_create = (decltype(encoder_create))dlsym(dl, "opus_encoder_create");
+    encode_float = (decltype(encode_float))dlsym(dl, "opus_encode_float");
+    encoder_ctl = (decltype(encoder_ctl))dlsym(dl, "opus_encoder_ctl");
+    encoder_destroy =
+        (decltype(encoder_destroy))dlsym(dl, "opus_encoder_destroy");
+    return encoder_create && encode_float && encoder_ctl && encoder_destroy;
+  }
+};
+
+OpusApi g_opus;
+std::mutex g_opus_mu;
+
+// Per-(sender, SSRC) encoder state (struct session, opus.c:25-44; mirrors
+// audio/transcode.py OpusSession so the two paths are differential-testable).
+struct OpusTxSession {
+  void* enc = nullptr;
+  std::vector<float> buf;  // interleaved stereo accumulate
+  // input rtp_process state (multicast.c:305-340)
+  bool init = false;
+  uint16_t seq_in = 0;
+  uint32_t ts_in = 0;
+  // output stream state
+  uint16_t seq_out = 0;
+  uint32_t ts_out = 0;
+  bool silent = true;
+  uint32_t ssrc = 0;
+};
+
+struct OpusTxEngine {
+  int in_fd = -1, out_fd = -1;
+  int bitrate, frame_len, fec;
+  int complexity;  // -1 = libopus default (the reference never sets it)
+  bool dtx;
+  int max_sessions;
+  std::map<std::array<uint32_t, 3>, OpusTxSession> sessions;
+  std::thread thread;
+  std::atomic<bool> stop{false};
+  std::atomic<long long> pkts_in{0}, pkts_out{0}, frames_enc{0},
+      n_sessions{0}, dupes{0}, resets{0}, rejected{0};
+
+  void* make_encoder() {
+    int err = 0;
+    void* e = g_opus.encoder_create(48000, 2, OPUS_APPLICATION_AUDIO, &err);
+    if (!e || err) return nullptr;
+    g_opus.encoder_ctl(e, OPUS_SET_BITRATE, bitrate);
+    g_opus.encoder_ctl(e, OPUS_SET_DTX, dtx ? 1 : 0);
+    if (complexity >= 0)  // deployment knob (opus.c never sets it)
+      g_opus.encoder_ctl(e, OPUS_SET_COMPLEXITY, complexity);
+    if (fec) {  // expected-loss %, opus.c:62,232-239
+      g_opus.encoder_ctl(e, OPUS_SET_INBAND_FEC, 1);
+      g_opus.encoder_ctl(e, OPUS_SET_PACKET_LOSS_PERC, fec);
+    }
+    return e;
+  }
+
+  void emit(OpusTxSession& s) {
+    // drain whole frames out of the accumulate buffer (opus.c:356-397)
+    unsigned char pkt[RTP_MIN_SIZE + 4000];
+    size_t off = 0;
+    while (s.buf.size() - off >= (size_t)frame_len * 2) {
+      int32_t n = g_opus.encode_float(s.enc, s.buf.data() + off, frame_len,
+                                      pkt + RTP_MIN_SIZE, 4000);
+      off += (size_t)frame_len * 2;
+      uint32_t ts = s.ts_out;
+      s.ts_out += (uint32_t)frame_len;
+      frames_enc++;
+      if (n < 0) continue;  // encoder error: drop the frame, keep the clock
+      if (n <= 2) {  // DTX: no packet, timestamp advances (opus.c:372-379)
+        s.silent = true;
+        continue;
+      }
+      uint8_t* p = pkt;
+      *p++ = 0x80;
+      *p++ = (uint8_t)((s.silent ? 0x80 : 0) | OPUS_PT);
+      *p++ = s.seq_out >> 8; *p++ = s.seq_out & 0xFF;
+      s.seq_out++;
+      *p++ = ts >> 24; *p++ = ts >> 16; *p++ = ts >> 8; *p++ = ts;
+      uint32_t ss = s.ssrc;
+      *p++ = ss >> 24; *p++ = ss >> 16; *p++ = ss >> 8; *p++ = ss;
+      s.silent = false;
+      if (send(out_fd, pkt, RTP_MIN_SIZE + n, 0) >= 0) pkts_out++;
+    }
+    if (off) s.buf.erase(s.buf.begin(), s.buf.begin() + off);
+  }
+
+  void handle(const uint8_t* data, int len, const sockaddr_storage& from) {
+    RtpHeader h;
+    if (!parse_rtp(data, len, &h)) return;
+    if (h.type != PCM_MONO_PT && h.type != PCM_STEREO_PT) return;
+    pkts_in++;
+    std::array<uint32_t, 3> key{sender_hash(from), sender_port(from),
+                                h.ssrc};
+    auto it = sessions.find(key);
+    if (it == sessions.end()) {
+      if ((int)sessions.size() >= max_sessions) {  // hostile-SSRC flood cap
+        rejected++;
+        return;
+      }
+      void* enc = make_encoder();
+      if (!enc) return;
+      it = sessions.emplace(key, OpusTxSession{}).first;
+      it->second.enc = enc;
+      it->second.ssrc = h.ssrc;
+      n_sessions++;
+    }
+    OpusTxSession& s = it->second;
+
+    const int channels = (h.type == PCM_MONO_PT) ? 1 : 2;
+    const uint8_t* payload = data + h.payload_offset;
+    int plen = len - h.payload_offset - h.pad_len;  // strip RTP padding
+    int frames = plen / (2 * channels);  // ragged tails truncated
+
+    // rtp_process (multicast.c:305-340), per session
+    if (!s.init) {
+      s.seq_in = h.seq;
+      s.ts_in = h.timestamp;
+      s.init = true;
+    }
+    int16_t seq_step = (int16_t)(h.seq - s.seq_in);
+    if (seq_step < 0) { dupes++; return; }
+    s.seq_in = h.seq + 1;
+    int32_t gap = (int32_t)(h.timestamp - s.ts_in);
+    if (gap < 0) { dupes++; return; }
+    s.ts_in = h.timestamp + (uint32_t)frames;
+
+    if (h.marker || gap > 4 * frame_len) {
+      // talk-spurt start or long gap: in-place reset (opus.c:251-255)
+      g_opus.encoder_ctl(s.enc, OPUS_RESET_STATE);
+      s.buf.clear();
+      s.ts_out += (uint32_t)gap;
+      s.silent = true;
+      resets++;
+    } else if (gap > 0) {
+      s.buf.insert(s.buf.end(), (size_t)gap * 2, 0.0f);
+    }
+    // big-endian int16 -> float stereo, matching transcode.py's
+    // float32(v)/32767.0 exactly (the differential test depends on it)
+    size_t base = s.buf.size();
+    s.buf.resize(base + (size_t)frames * 2);
+    float* dst = s.buf.data() + base;
+    if (channels == 1) {
+      for (int i = 0; i < frames; i++) {
+        int16_t v = (int16_t)((payload[2 * i] << 8) | payload[2 * i + 1]);
+        float f = (float)v / 32767.0f;
+        dst[2 * i] = f;
+        dst[2 * i + 1] = f;
+      }
+    } else {
+      for (int i = 0; i < 2 * frames; i++) {
+        int16_t v = (int16_t)((payload[2 * i] << 8) | payload[2 * i + 1]);
+        dst[i] = (float)v / 32767.0f;
+      }
+    }
+    emit(s);
+  }
+
+  void run() {
+    std::vector<std::vector<uint8_t>> bufs(BATCH,
+                                           std::vector<uint8_t>(MAX_PKT));
+    mmsghdr msgs[BATCH];
+    iovec iovs[BATCH];
+    sockaddr_storage addrs[BATCH];
+    for (int i = 0; i < BATCH; i++) {
+      iovs[i] = {bufs[i].data(), (size_t)MAX_PKT};
+      memset(&msgs[i], 0, sizeof(msgs[i]));
+      msgs[i].msg_hdr.msg_iov = &iovs[i];
+      msgs[i].msg_hdr.msg_iovlen = 1;
+    }
+    // Each call overwrites msg_namelen with the sender's address length,
+    // so every slot a call may fill gets its name buffer back first.
+    auto arm = [&](int first, int count) {
+      for (int i = first; i < first + count; i++) {
+        msgs[i].msg_hdr.msg_name = &addrs[i];
+        msgs[i].msg_hdr.msg_namelen = sizeof(sockaddr_storage);
+      }
+    };
+    // Where the network stack refuses MSG_WAITFORONE with EINVAL (as
+    // RxEngine::run explains), block for one datagram, then take whatever
+    // else is queued without waiting.  The socket's SO_RCVTIMEO
+    // (make_mcast_rx) wakes the blocking call to check for a stop.
+    bool waitforone = true;
+    while (!stop.load()) {
+      int n;
+      if (waitforone) {
+        arm(0, BATCH);
+        n = recvmmsg(in_fd, msgs, BATCH, MSG_WAITFORONE, nullptr);
+        if (n < 0 && errno == EINVAL) waitforone = false;
+      } else {
+        arm(0, 1);
+        n = recvmmsg(in_fd, msgs, 1, 0, nullptr);
+        if (n == 1) {
+          arm(1, BATCH - 1);
+          int more =
+              recvmmsg(in_fd, msgs + 1, BATCH - 1, MSG_DONTWAIT, nullptr);
+          if (more > 0) n += more;
+        }
+      }
+      if (n <= 0) continue;
+      for (int i = 0; i < n; i++)
+        handle(bufs[i].data(), msgs[i].msg_len, addrs[i]);
+    }
+  }
+};
 
 }  // namespace
 
@@ -657,6 +920,59 @@ void pcm_tx_set_ssrc(void* h, int ch, unsigned int ssrc) {
 void pcm_tx_destroy(void* h) {
   auto* e = (PcmTxEngine*)h;
   close(e->fd);
+  delete e;
+}
+
+// Native PCM->Opus transcoder (opus.c main loop).  frame_len is samples
+// per Opus frame at 48 kHz (Python validates legality, opus.c option
+// check); fec is the expected packet-loss percentage (0 = off).  Returns
+// null if libopus cannot be loaded or sockets fail.
+void* opus_tx_create(const char* in_group, int in_port, const char* out_group,
+                     int out_port, int bitrate, int frame_len, int dtx,
+                     int fec, int ttl, int max_sessions, int complexity) {
+  {
+    std::lock_guard<std::mutex> lk(g_opus_mu);
+    if (!g_opus.load()) return nullptr;
+  }
+  int in_fd = make_mcast_rx(in_group, in_port);
+  if (in_fd < 0) return nullptr;
+  int out_fd = make_mcast_tx(out_group, out_port, ttl);
+  if (out_fd < 0) {
+    close(in_fd);
+    return nullptr;
+  }
+  auto* e = new OpusTxEngine();
+  e->in_fd = in_fd;
+  e->out_fd = out_fd;
+  e->bitrate = bitrate;
+  e->frame_len = frame_len;
+  e->dtx = dtx != 0;
+  e->fec = fec;
+  e->max_sessions = max_sessions > 0 ? max_sessions : 1024;
+  e->complexity = complexity;
+  e->thread = std::thread(&OpusTxEngine::run, e);
+  return e;
+}
+
+void opus_tx_stats(void* h, long long* out7) {
+  auto* e = (OpusTxEngine*)h;
+  out7[0] = e->pkts_in.load();
+  out7[1] = e->pkts_out.load();
+  out7[2] = e->frames_enc.load();
+  out7[3] = e->n_sessions.load();
+  out7[4] = e->dupes.load();
+  out7[5] = e->resets.load();
+  out7[6] = e->rejected.load();
+}
+
+void opus_tx_destroy(void* h) {
+  auto* e = (OpusTxEngine*)h;
+  e->stop.store(true);
+  if (e->thread.joinable()) e->thread.join();
+  for (auto& kv : e->sessions)
+    if (kv.second.enc) g_opus.encoder_destroy(kv.second.enc);
+  close(e->in_fd);
+  close(e->out_fd);
   delete e;
 }
 

@@ -356,4 +356,6 @@ def test_package_lists_the_daemons(capsys):
         __import__(f"ka9q_sdr_tpu_torch.apps.{app}")
     assert set(listing.APPS) == {"radio", "bankd", "frontend", "iqplay",
                                  "iqrecord", "modulate", "pcmsend",
-                                 "packetd", "aprs", "aprsfeed"}
+                                 "packetd", "aprs", "aprsfeed", "pcmcat",
+                                 "opusd", "opussend", "monitor", "control",
+                                 "display"}

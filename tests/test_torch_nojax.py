@@ -4,8 +4,9 @@ module and run two blocks of a tiny bank of each demodulator family, a live
 retune, a mixed-mode MultiBank, a receiver fed by the test modulator, a
 column FFT, the ``bankd`` and ``radio`` daemons on a tiny recording, the
 packet modem's session on an AFSK frame, two front-end blocks of a tiny
-recording and ``modulate`` on a few blocks, on the CPU in a subprocess
-where ``import jax`` and ``import ka9q_sdr_tpu`` fail."""
+recording, ``modulate`` on a few blocks, a band-plan lookup, a Mixer read
+and an Opus round trip (where libopus is present), on the CPU in a
+subprocess where ``import jax`` and ``import ka9q_sdr_tpu`` fail."""
 
 import subprocess
 import sys
@@ -123,6 +124,23 @@ try:
 finally:
     sys.stdin, sys.stdout = stdin, stdout
 assert len(out.getvalue()) == 3 * 960 * 4
+from ka9q_sdr_tpu_torch import audio
+from ka9q_sdr_tpu_torch.apps import (control, display, monitor, opusd,
+                                     opussend, pcmcat)
+from ka9q_sdr_tpu_torch.audio import opus_codec, playout, transcode
+from ka9q_sdr_tpu_torch.utils import bandplan
+assert bandplan.load_default().lookup(146.52e6) is not None
+mixer = audio.Mixer()
+tone = np.round(8000 * np.sin(np.arange(480) / 7.0)).astype(">i2")
+mixer.feed_packet(rtp.RTPHeader(type=11, ssrc=1, marker=True).to_bytes()
+                  + tone.tobytes())
+mixer.read(playout.START_DELAY)
+assert abs(mixer.read(480)[:, 0] * 32767 - tone * 0.5).max() < 0.01
+if audio.OPUS_AVAILABLE:
+    enc, dec = audio.OpusEncoder(), audio.OpusDecoder()
+    frame = np.repeat(np.sin(np.arange(960) / 7.0)[:, None], 2, 1) * 0.3
+    pkts = [enc.encode(frame.astype(np.float32)) for _ in range(3)]
+    assert [dec.decode(p).shape for p in pkts] == [(960, 2)] * 3
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "ka9q_sdr_tpu")
                for m, mod in sys.modules.items() if mod is not None)
 print("ok")
