@@ -60,7 +60,18 @@ drives the channel bank through its user entry points:
   channels mid-run and reading it back (``--once``); each tone checked as
   its channel's spectral peak on the PCM group, on the Opus group, and the
   new tone in monitor's mix.  Where libopus is not installed the phase
-  says so and runs the legs that do not need it.
+  says so and runs the legs that do not need it;
+- the sharded bank (``parallel.mesh``) on a mesh of 4 shards of the card,
+  the one-card machine's stand-in for 4 cards: FM+PL, FM+PL with the
+  distributed master FFT (``shard_fft``) and CAM at 4096 channels x
+  393.216 Msps, each against the unsharded bank on the card, the fill and
+  AGC launches counted per block; ``bankd --mesh 4`` through ``main()``
+  (``--iq-file`` at 1022 channels, padded to 1024, equal to bankd without
+  the mesh; ``-I --max-active 64`` at 510 channels, where no padding row
+  may take a slot); ``dryrun_multichip(4)``; the stage profile
+  (``tools/stage_profile``) at 8192 channels on long blocks and 4096 at 20
+  ms with the receiver's front end; and a 30 s serving soak
+  (``tools/serve_soak``) at 5120 channels.
 
 Times come from CUDA events.  Phases print their
 findings line by line.
@@ -70,6 +81,7 @@ and suppresses both JSON lines; no CUDA device means exit code 2, and a
 directory without the port beside the script exit code 3.
 """
 
+import argparse
 import ast
 import contextlib
 import io
@@ -209,79 +221,17 @@ def nvidia_smi():
 
 
 def cuda_ms(fn, iters):
-    """Mean device time of fn() in ms over `iters` calls, after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-_FLUSH = []
-
-
-def flush_l2():
-    """Overwrite 128 MB, more than the H100's 50 MB L2, so that the next
-    launch reads its inputs from device memory."""
-    if not _FLUSH:
-        _FLUSH.append(torch.zeros(128 << 20, dtype=torch.uint8, device=DEV))
-    _FLUSH[0].bitwise_not_()
-
-
-def _span_ms(calls):
-    """Device time of the work that calls() queues: CUDA events around it
-    while a spin kernel holds the device until all of it is queued, so no
-    enqueue gap of the host counts (unlike cuda_ms).  calls() runs twice or
-    more: the first run, unspun, measures how long the host takes to queue
-    it.
-    Where the host had to wait for the device to queue it (a host sync, or
-    more launches than the device's launch queue holds, about a thousand),
-    the span would hold host time: nan, with a note.  A host stall that
-    outlasts the spin once is retried twice with a spin four times longer;
-    a step that waits for the device outlasts every spin."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    calls()
-    host = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    spin = 4 * host + 5e-3
-    for _ in range(3):
-        torch.cuda._sleep(int(spin * CLOCK_HZ))
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        calls()
-        end.record()
-        queued = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        if queued < spin:
-            return start.elapsed_time(end)
-        spin *= 4
-    print(f"  (not measured: queuing took {queued * 1e3:.1f} ms, past "
-          f"the {spin / 4 * 1e3:.1f} ms spin)", flush=True)
-    return float("nan")
+    """Mean device time of fn() in ms over `iters` calls, after a warm-up
+    (the port's ``utils.timing.cuda_ms``)."""
+    from ka9q_sdr_tpu_torch.utils import timing
+    return timing.cuda_ms(fn, iters)
 
 
 def device_ms(fn, iters, cold=False):
-    """Device time per call of fn() (see _span_ms): warm, `iters` calls
-    queued back to back; cold, each call timed alone after a flush of the
-    L2, as a caller whose inputs were written long before would find it,
-    less the flush's own span."""
-    if not cold:
-        def calls():
-            for _ in range(iters):
-                fn()
-        return _span_ms(calls) / iters
-    total = 0.0
-    for _ in range(iters):
-        total += _span_ms(lambda: (flush_l2(), fn())) - _span_ms(flush_l2)
-    return total / iters
+    """Device time per call of fn(), spin-padded CUDA events; cold, each
+    call after a flush of the L2 (the port's ``utils.timing.device_ms``)."""
+    from ka9q_sdr_tpu_torch.utils import timing
+    return timing.device_ms(fn, iters, cold=cold)
 
 
 def bank_freqs(n):
@@ -1571,11 +1521,18 @@ def phase_bankd_mixed(bankd, bank_mod, io_mod, status, ffill, agc, smi, tmp):
     os.unlink(rec)
 
 
-def phase_bankd_live(bankd, native, ffill, smi):
+def phase_bankd_live(bankd, native, ffill, smi, mesh=0):
     """bankd -I at README's deployment line over 127.0.0.1 unicast, fed by
-    the port's native RTPSender at the wire rate."""
-    fs, n_ch = LIVE["samprate"], LIVE["channels"]
-    print(f"phase 20: bankd -I, {n_ch} FM channels at {fs / 1e6:.3f} Msps, "
+    the port's native RTPSender at the wire rate.  With `mesh`, bankd --mesh
+    at two channels fewer (padded back), a carrier on the last channel, so
+    the padding rows that copy it are as loud as a real one: none may take
+    an active slot."""
+    fs, n_ch = LIVE["samprate"], LIVE["channels"] - (2 if mesh else 0)
+    sig = LIVE_SIG if not mesh else (
+        tuple(c for c in LIVE_SIG if c < n_ch - 1) + (n_ch - 1,))
+    extra = ["--mesh", str(mesh)] if mesh else []
+    print(f"phase {'26b' if mesh else 20}: bankd -I {' '.join(extra)}, "
+          f"{n_ch} FM channels at {fs / 1e6:.3f} Msps, "
           f"--max-active {LIVE['max_active']}, {LIVE['blocks']} blocks from "
           "the native sender at the wire rate", flush=True)
     L, _ = bankd.derive_geometry(fs)
@@ -1583,7 +1540,7 @@ def phase_bankd_live(bankd, native, ffill, smi):
     # one second of I/Q, which repeats seamlessly: every carrier and tone
     # is a whole number of Hz
     sec = torch.cat([make_iq(b, L, fs, SEED + 20,
-                             fm=[(freqs[c], False) for c in LIVE_SIG])
+                             fm=[(freqs[c], False) for c in sig])
                      for b in range(fs // L)]).cpu().numpy().reshape(-1)
     p_in = free_ports(4)           # I/Q in; PCM out on +1, commands on +3
     p_out = p_in + 1
@@ -1624,34 +1581,51 @@ def phase_bankd_live(bankd, native, ffill, smi):
             ["-I", f"127.0.0.1:{p_in}", "-R", f"127.0.0.1:{p_out}", "-r",
              str(fs), "--channels", str(n_ch), "-m", "FM", "--max-active",
              str(LIVE["max_active"]), "--blocks", str(LIVE["blocks"]),
-             *daemon_flags()])
+             *extra, *daemon_flags()])
+
+    emitted, emit = [], bankd.BankDaemon.emit_active
+
+    def emit_active(self, copy, L_dec):
+        emitted.append(copy.wait()[1])
+        emit(self, copy, L_dec)
 
     threads = [threading.Thread(target=f, daemon=True) for f in (drain, send)]
     for t in threads:
         t.start()
     daemon = threading.Thread(target=serve, daemon=True)
     ffill.launches = 0
-    rc, err, wall = run_daemon(lambda: (daemon.start(),
-                                        daemon.join(DAEMON_WAIT_S)))
+    bankd.BankDaemon.emit_active = emit_active
+    try:
+        rc, err, wall = run_daemon(lambda: (daemon.start(),
+                                            daemon.join(DAEMON_WAIT_S)))
+    finally:
+        bankd.BankDaemon.emit_active = emit
     launches = ffill.launches
     stop.set()
     for t in threads:
         t.join(5.0)
     pcm_rx.close()
+    idx = np.stack(emitted) if emitted else np.zeros((0, 1), np.int32)
+    top = int(idx.max()) if idx.size else None
+    check(len(idx) == LIVE["blocks"] and top is not None and top < n_ch,
+          f"{len(idx)} blocks of active slots emitted, every index below "
+          f"{n_ch} (max {top}): no padding row took a slot")
     check(result.get("rc") == 0,
           f"bankd -I served {LIVE['blocks']} blocks and returned "
           f"{result.get('rc')} ({wall:.2f} s wall, build and warm-up "
           f"included; {got['sent']} I/Q packets sent)")
-    check(launches >= 2 * LIVE["blocks"],
-          f"ffill launches {launches} >= 2 per block")
-    want = {c + 1 for c in LIVE_SIG}
+    per = 2 * (mesh or 1)
+    check(launches >= per * LIVE["blocks"],
+          f"ffill launches {launches} >= {per} per block")
+    want = {c + 1 for c in sig}
     check(got["packets"] > 0 and got["ssrcs"] == want,
           f"{got['packets']} PCM packets on -R from SSRCs "
           f"{sorted(got['ssrcs'])} (the signal channels {sorted(want)})")
     split = timing_split(err)
     check(split is not None, "KA9Q_BANKD_TIMING split printed")
     if split is not None:
-        print_split("bankd -I --max-active", split, smi)
+        print_split(f"bankd -I --max-active {' '.join(extra)}".rstrip(),
+                    split, smi)
     return split
 
 
@@ -2586,6 +2560,217 @@ def phase_chain(mods, ffill, smi, live_split, tmp):
     print(f"  phase 24 took {time.monotonic() - t_phase:.1f} s", flush=True)
 
 
+#: the sharded phases (25-26): the card stands in for a mesh of MESH_D
+#: shards (a list that repeats one card runs the sharded code on it); the
+#: blocks compared sharded against unsharded; the channels of bankd
+#: --mesh's recording at the live line's rate (not divisible by MESH_D)
+MESH_D, SHARD_BLOCKS, MESH_FILE_CH, MESH_FILE_BLOCKS = 4, 20, 1022, 8
+#: the soak (phase 29)
+SOAK = dict(channels=5120, seconds=30)
+
+
+def _worst(a, r, rtol):
+    """max(|a - r| - rtol |r|), which atol must cover, and max |a - r|."""
+    d = torch.abs(a.to(torch.float32) - r.to(torch.float32))
+    return (float(torch.max(d - rtol * torch.abs(r.to(torch.float32)))),
+            float(torch.max(d)))
+
+
+def phase_sharded(bank_mod, mesh_mod, ffill, agc, smi, freqs, cards=False):
+    """The bank with its channel axis sharded over MESH_D shards of the
+    card (or, with `cards`, over the machine's first MESH_D cards), at the
+    full serving width, against the unsharded bank on the (first) card:
+    FM+PL (replicated master FFT), FM+PL with the distributed master FFT
+    (shard_fft), and CAM through the AGC kernel."""
+    n_ch, L, M = SERVE["n_channels"], SERVE["L"], SERVE["M"]
+    mesh = mesh_mod.make_channel_mesh(
+        MESH_D if cards else None, devices=None if cards else [DEV] * MESH_D)
+    where = (f"{MESH_D} cards" if cards
+             else f"{MESH_D} shards of one card")
+    print(f"phase 25{'c' if cards else ''}: the sharded bank, {n_ch} channels "
+          f"x {FS / 1e6:.3f} Msps (N = 2^24) on {where}, {SHARD_BLOCKS} "
+          f"blocks against the unsharded bank", flush=True)
+    cam_carriers = [(freqs[c] + o * PLL_BIN, True, None)
+                    for c, o in CAM_SIGNAL.items()]
+    cases = (("FM+PL", "FM", False, 2e-5, 1e-5, 0, ffill, 2),
+             ("FM+PL shard_fft", "FM", True, 3e-5, 1e-4, 0, ffill, 2),
+             ("CAM", "CAM", False, 2e-5, 1e-5, 1, agc, 1))
+    for label, mode, shard_fft, atol, rtol, first, kmod, per in cases:
+        cfg = bank_mod.make_bank_config(n_ch, mode, samprate=FS, L=L, M=M,
+                                        enable_pl=mode == "FM")
+        flat = bank_mod.ChannelBank(cfg, freqs, device=DEV)
+        sb = bank_mod.ChannelBank(cfg, freqs, mesh=mesh, shard_fft=shard_fft)
+
+        def block(b):
+            if mode == "FM":
+                return make_block(b, L, freqs, SIGNAL, NO_PL, DEV)
+            return make_am_block(b, L, FS, cam_carriers, DEV)
+
+        worst, diff, launches = -1.0, 0.0, 0
+        for b in range(SHARD_BLOCKS):
+            x = block(b)
+            k0 = kmod.launches
+            a, _ = sb.process_i16(x)
+            launches += kmod.launches - k0
+            r, _ = flat.process_i16(x)
+            if b >= first:
+                w, d = _worst(a, r, rtol)
+                worst, diff = max(worst, w), max(diff, d)
+        kname = kmod.__name__.rsplit(".", 1)[-1]
+        check(worst <= atol and a.shape == r.shape,
+              f"{label} sharded over {MESH_D}: audio within atol {atol:g} "
+              f"rtol {rtol:g} of the unsharded bank from block {first} "
+              f"(max |diff| {diff:.3e})")
+        check(launches == per * MESH_D * SHARD_BLOCKS,
+              f"{label} sharded: {kname} launches {launches} = "
+              f"{launches / SHARD_BLOCKS:g} per block ({per} per shard)")
+        x = block(0)
+        if not shard_fft:       # the FM+PL case timed it already
+            time_step(lambda: flat.process_i16_pcm(x), n_ch, L, FS,
+                      f"{mode} {n_ch} ch unsharded", 10, smi)
+        if cards:
+            # CUDA events on the first card, where every shard's output is
+            # gathered; device busy is per card, so not one number here
+            ms = cuda_ms(lambda: sb.process_i16_pcm(x), 10)
+            print(f"  {label} {n_ch} ch on {where}: {ms:.3f} ms/block "
+                  f"({n_ch * L / (ms / 1e3) / 1e6:,.0f} ch x Msps) "
+                  f"[{smi}]", flush=True)
+        else:
+            time_step(lambda: sb.process_i16_pcm(x), n_ch, L, FS,
+                      f"{label} {n_ch} ch on {where}", 10, smi)
+        del flat, sb
+        torch.cuda.empty_cache()
+
+
+def phase_bankd_mesh(bankd, bank_mod, mesh_mod, io_mod, native, ffill, smi,
+                     tmp):
+    """bankd --mesh through main(): --iq-file at 1022 FM channels padded to
+    1024 (PCM equal to bankd without the mesh, no padding row written);
+    bankd -I --mesh --max-active where padding rows never take a slot."""
+    fs, n_ch = LIVE["samprate"], MESH_FILE_CH
+    print(f"phase 26: bankd --mesh {MESH_D} (a {MESH_D}-shard mesh of the "
+          f"card), --iq-file at {n_ch} FM channels x {fs / 1e6:.3f} Msps, "
+          f"{MESH_FILE_BLOCKS} blocks; then -I --max-active", flush=True)
+    mesh = mesh_mod.make_channel_mesh(devices=[DEV] * MESH_D)
+    real_mesh = bankd._mesh
+    got = real_mesh(argparse.Namespace(mesh=MESH_D, cpu=DEV == "cpu"))
+    check(got.size == (MESH_D if DEV == "cpu" else min(
+              MESH_D, torch.cuda.device_count())),
+          f"--mesh {MESH_D} on this machine: a {got.size}-device mesh "
+          f"({', '.join(map(str, got.devices))}), printed")
+    # the one-card machine's stand-in for MESH_D cards: --mesh gets the
+    # MESH_D shards of the card
+    bankd._mesh = lambda args: mesh if args.mesh else None
+    try:
+        L, _ = bankd.derive_geometry(fs)
+        freqs = np.linspace(-0.45 * fs, 0.45 * fs, n_ch, endpoint=False)
+        # a carrier on the last channel: the padding rows copy its
+        # frequency, so they are as loud as a real channel
+        sig = (3, n_ch // 10, n_ch - 1)
+        rec = os.path.join(tmp, "mesh.iq")
+        record(rec, [make_iq(b, L, fs, SEED + 26,
+                             fm=[(freqs[c], False) for c in sig])
+                     for b in range(MESH_FILE_BLOCKS)], fs, io_mod)
+        outs = {}
+        for tag, extra in (("mesh", ["--mesh", str(MESH_D)]), ("flat", [])):
+            outs[tag] = os.path.join(tmp, f"{tag}.pcm")
+            k0 = ffill.launches
+            rc, err, wall = run_daemon(lambda: bankd.main(
+                ["--iq-file", rec, "-r", str(fs), "--channels", str(n_ch),
+                 "-m", "FM", "--pcm-raw", outs[tag], *extra,
+                 *daemon_flags()]))
+            check(rc == 0, f"bankd --iq-file {' '.join(extra)} returned "
+                  f"{rc} ({wall:.2f} s wall, build included); ffill "
+                  f"launches {ffill.launches - k0}")
+            if tag == "mesh":
+                check(f"padded {n_ch} channels to {n_ch + 2} for the "
+                      f"{MESH_D}-device mesh" in err,
+                      "bankd printed the mesh and its padding")
+                check(ffill.launches - k0 == 2 * MESH_D * MESH_FILE_BLOCKS,
+                      f"ffill launched {ffill.launches - k0} times: 2 per "
+                      f"shard and block")
+        pa, pb = (np.fromfile(outs[t], "<i2").astype(np.int32)
+                  for t in ("mesh", "flat"))
+        check(pa.size == MESH_FILE_BLOCKS * n_ch * 960 and pa.shape ==
+              pb.shape and np.abs(pa - pb).max() <= 1,
+              f"bankd --mesh --pcm-raw: {pa.size} samples ({n_ch} channels, "
+              f"no padding row), within {np.abs(pa - pb).max()} LSB of "
+              f"bankd without the mesh")
+        os.unlink(rec)
+        phase_bankd_live(bankd, native, ffill, smi, mesh=MESH_D)
+    finally:
+        bankd._mesh = real_mesh
+
+
+def phase_dryrun(dryrun):
+    print(f"phase 27: dryrun_multichip({MESH_D}) on {MESH_D} shards of the "
+          "card", flush=True)
+    t0 = time.perf_counter()
+    try:
+        dryrun.dryrun_multichip(MESH_D, devices=[DEV] * MESH_D)
+        ok = True
+    except AssertionError as e:
+        print(f"  dryrun: {e}", flush=True)
+        ok = False
+    check(ok, f"dryrun_multichip({MESH_D}): FM, CAM, N = 2^16, shard_fft at "
+          f"8192 and 2^16, fft_fourstep, bankd --mesh, MultiBank, Doppler, "
+          f"ISB, migration ({time.perf_counter() - t0:.1f} s)")
+
+
+def _tool_json(main_fn, argv):
+    """Run a tool's main(argv) in this process; its last stdout line as
+    JSON (None if it failed)."""
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        rc = main_fn(argv)
+    lines = "".join(tee.parts).strip().splitlines()
+    if rc != 0 or not lines:
+        return None
+    return json.loads(lines[-1])
+
+
+def phase_tools(stage_profile, serve_soak, ffill, smi):
+    print("phase 28: tools/stage_profile at 8192 ch on long blocks (N = "
+          "2^26) and 4096 ch at 20 ms, with the receiver front end",
+          flush=True)
+    rows = ("master_ms", "chan_ms", "full_ms", "d_channelize_ms",
+            "d_demod_ms", "fills_ms", "pl_ring_ms", "pl_fft_ms",
+            "pl_fft_amortised_ms", "front_nco_ms", "front_n0_ms",
+            "front_psd_ms", "realtime_x")
+    for argv in (["--channels", str(LONG["n_channels"]), "--L",
+                  str(LONG["L"]), "--M", str(LONG["M"])],
+                 ["--channels", str(SERVE["n_channels"]), "--L",
+                  str(SERVE["L"]), "--M", str(SERVE["M"])]):
+        t0 = time.perf_counter()
+        res = _tool_json(stage_profile.main, argv)
+        ok = res is not None and all(isinstance(res.get(k), (int, float))
+                                     for k in rows)
+        check(ok and res["d_channelize_ms"] == round(
+                  res["chan_ms"] - res["master_ms"], 3)
+              and res["device"] == torch.cuda.get_device_name(0),
+              f"stage_profile {' '.join(argv[:2])}: every row, derived "
+              f"rows exact ({time.perf_counter() - t0:.1f} s)")
+        if ok:
+            print(f"  stage_profile {res['channels']} ch, L_dec "
+                  f"{res['L_dec']}: " + ", ".join(f"{k} {res[k]}"
+                                                  for k in rows)
+                  + f" [{smi}]", flush=True)
+        torch.cuda.empty_cache()
+    print(f"phase 29: tools/serve_soak, {SOAK['channels']} FM+PL channels "
+          f"at 20 ms, --max-active 64, {SOAK['seconds']} s", flush=True)
+    k0 = ffill.launches
+    res = _tool_json(serve_soak.main, ["--channels", str(SOAK["channels"]),
+                                       "--seconds", str(SOAK["seconds"])])
+    keys = ("blocks", "sustained_rt", "p50_ms", "p99_ms", "max_ms",
+            "channels", "block_ms", "peak_rss_kb")
+    check(res is not None and all(k in res for k in keys)
+          and res["blocks"] > 0
+          and 0 < res["p50_ms"] <= res["p99_ms"] <= res["max_ms"]
+          and ffill.launches - k0 >= 2 * res["blocks"],
+          f"serve_soak: {res and {k: res[k] for k in keys}}; ffill launches "
+          f"{ffill.launches - k0} [{smi}]")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -2610,6 +2795,8 @@ def main():
         from ka9q_sdr_tpu_torch.net import multicast, rtp
         from ka9q_sdr_tpu_torch.apps import control
         from ka9q_sdr_tpu_torch.audio import opus_codec, transcode
+        from ka9q_sdr_tpu_torch.parallel import dryrun, mesh as mesh_mod
+        from ka9q_sdr_tpu_torch.tools import serve_soak, stage_profile
     except ModuleNotFoundError as e:
         print(f"chip_smoke: the port is not importable ({e}); run this "
               "script from the root of a checkout", file=sys.stderr)
@@ -2732,6 +2919,16 @@ def main():
         phase_aprs_bank(mods, ffill, smi, tmp)
         phase_aprs_radio(mods, ffill, smi, tmp)
         phase_chain(mods, ffill, smi, live_split, tmp)
+        torch.cuda.empty_cache()
+        phase_sharded(bank_mod, mesh_mod, ffill, agc, smi, freqs)
+        if torch.cuda.device_count() >= MESH_D:
+            phase_sharded(bank_mod, mesh_mod, ffill, agc, smi, freqs,
+                          cards=True)
+        phase_bankd_mesh(bankd, bank_mod, mesh_mod, io_mod, native, ffill,
+                         smi, tmp)
+        torch.cuda.empty_cache()
+        phase_dryrun(dryrun)
+        phase_tools(stage_profile, serve_soak, ffill, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

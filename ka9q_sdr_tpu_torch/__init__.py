@@ -28,14 +28,20 @@ layout and public names so each counterpart sits under the same path:
                  ``packetd``, ``aprs`` and ``aprsfeed``; the listening and
                  control end, ``opusd``, ``opussend``, ``pcmcat``,
                  ``monitor``, ``control`` and ``display``.
+- ``parallel`` — the channel bank sharded over a list of devices (the
+                 channel mesh), the distributed master FFT and the
+                 multi-device dry run.
+- ``tools``    — the stage profile, the serving soak and the daemon
+                 constellation soak.
 - ``utils``    — the mode table, the band plan, frequency parsing, state
-                 files, the daemons' device choice.
+                 files, the daemons' device choice, device timing.
 - ``interop``  — carries state between the two packages as numpy trees.
 
 It imports torch and numpy and never jax, nor anything of the JAX package:
 the host modules the daemons need are copies owned by the port.  No library
-function chooses a device by itself: callers name one (``device=``), and a
-tensor on a CUDA device always goes through the CUDA kernels.  The daemons
+function chooses a device by itself: callers name one (``device=``) or a
+mesh of them (``parallel.make_channel_mesh``, which takes the first cards),
+and a tensor on a CUDA device always goes through the CUDA kernels.  The daemons
 that use a device (``bankd``, ``radio``, ``modulate``) run on the CUDA card
 unless ``--cpu``.
 """

@@ -24,7 +24,13 @@ What differs from the JAX daemon:
   exits with a message (utils.runtime.configure_torch).
 - A block's outputs reach the host through one HostCopy: non_blocking
   copies into pinned memory behind one event, which the emit path waits on.
-- --mesh and --shard-fft are rejected: this daemon drives one card.
+- --mesh D takes the first D CUDA cards (fewer where the machine has
+  fewer, as the JAX daemon takes ``jax.devices()[:D]``; with --cpu, D CPU
+  shards) and prints the mesh it got; one process drives them all
+  (parallel.mesh).  The mesh is for capacity only: one host thread queues
+  each shard's step in turn, so a sharded block runs several times slower
+  than the unsharded bank on one card, and --shard-fft was no faster than
+  the replicated FFT on any geometry measured (PERF.md).
 - --profile writes a torch.profiler trace.
 - KA9Q_BANKD_TIMING=1 prints the loop's split per block on every input path
   (read, poll, step, copy, wait, emit, status), every 250 blocks and at the
@@ -50,6 +56,7 @@ from ..models.bank import ChannelBank, MultiBank, _complex_block, \
 from ..net import status as st
 from ..net.multicast import _parse_target, setup_mcast
 from ..net.status import StatusCompactor, StatusType
+from ..parallel.mesh import make_channel_mesh, pad_channels
 from ..utils.misc import parse_frequency
 from ..utils.runtime import HostCopy, configure_torch
 
@@ -305,7 +312,10 @@ class _Daemon:
 
 
 class BankDaemon(_Daemon):
-    def __init__(self, args, freqs):
+    """Single-mode daemon.  `mesh`: the channel mesh to run on, by default
+    the one --mesh asks for."""
+
+    def __init__(self, args, freqs, mesh=None):
         self.args = args
         self.device = configure_torch(getattr(args, "cpu", False), "bankd")
         samprate = float(args.samprate)
@@ -313,11 +323,25 @@ class BankDaemon(_Daemon):
             L, M = args.L, args.M
         else:
             L, M = derive_geometry(samprate, getattr(args, "block_ms", 20.0))
+        # --mesh D: one logical bank spanning D devices (filter.c:22-35
+        # fan-out).  The channel axis is padded to a device multiple;
+        # padded channels demodulate but never emit.
         self.n_real = len(freqs)
+        if mesh is None:
+            mesh = _mesh(args)
+        if mesh is not None:
+            freqs = pad_channels(freqs, mesh.size)
+            if len(freqs) != self.n_real:
+                print(f"bankd: padded {self.n_real} channels to {len(freqs)} "
+                      f"for the {mesh.size}-device mesh",
+                      file=sys.stderr, flush=True)
         self.cfg = make_bank_config(
             len(freqs), args.mode, samprate=samprate, L=L, M=M
         )
-        self.bank = ChannelBank(self.cfg, freqs, device=self.device)
+        self.bank = ChannelBank(
+            self.cfg, freqs, device=self.device if mesh is None else None,
+            mesh=mesh,
+            shard_fft=mesh is not None and getattr(args, "shard_fft", False))
         self.out_sock = None
         self.status_sock = None
         self.cmd_sock = None
@@ -395,6 +419,7 @@ class BankDaemon(_Daemon):
 
     def _emit(self, copy: HostCopy) -> None:
         (a,), diag, t0 = self._wait(copy)
+        a = a[: self.n_real]                # drop mesh-padding rows
         if a.dtype == np.int16:
             # device-side scaleclip already applied (process_i16_pcm)
             if self.native_pcm is not None and a.ndim == 2:
@@ -594,17 +619,20 @@ class MultiBankDaemon(_Daemon):
     single-mode BankDaemon -- every channel of every group is remotely
     retunable by OUTPUT_SSRC, and filter-edge commands hot-swap the
     ADDRESSED CHANNEL'S GROUP response (each group is its own slave-filter
-    family, filter.c:22-35)."""
+    family, filter.c:22-35).  `mesh` as BankDaemon's."""
 
-    def __init__(self, args, groups):
+    def __init__(self, args, groups, mesh=None):
         self.device = configure_torch(getattr(args, "cpu", False), "bankd")
         samprate = float(args.samprate)
         if args.L:
             L, M = args.L, args.M
         else:
             L, M = derive_geometry(samprate, getattr(args, "block_ms", 20.0))
+        if mesh is None:
+            mesh = _mesh(args)
         self.mb = MultiBank(groups, samprate=samprate, L=L, M=M,
-                            device=self.device)
+                            device=self.device if mesh is None else None,
+                            mesh=mesh)
         # SSRC numbering: sequential over REAL channels in group order;
         # ssrc_map[ssrc] = (group, idx)
         self.ssrc_map = {}
@@ -900,6 +928,7 @@ class MultiBankDaemon(_Daemon):
         t0 = self.timing.add("wait", t0)
         for g, row in enumerate(self.pcms):
             a, snr, bb = flat[3 * g: 3 * g + 3]
+            a = a[: len(row)]                # drop mesh-padding rows
             fan = self.native_fan[g]
             if fan is not None:
                 pcm = scaleclip_int16(a)
@@ -1046,19 +1075,16 @@ def run_multibank(args, groups) -> int:
     return 0
 
 
-def _mesh_arg(value: str) -> int:
-    n = int(value)
-    if n:
-        raise argparse.ArgumentTypeError(
-            "this daemon drives one CUDA card; a channel mesh over several "
-            "devices is not in the PyTorch port yet (use --mesh 0)")
-    return n
-
-
-class _RejectShardFFT(argparse.Action):
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error("--shard-fft: the distributed master FFT is not in the "
-                     "PyTorch port yet")
+def _mesh(args):
+    """The channel mesh of --mesh D (None without it), with the size it
+    actually got printed: a machine with fewer cards gives fewer."""
+    if not getattr(args, "mesh", 0):
+        return None
+    mesh = make_channel_mesh(args.mesh, cpu=getattr(args, "cpu", False))
+    print(f"bankd: --mesh {args.mesh}: a {mesh.size}-device mesh "
+          f"({', '.join(map(str, mesh.devices))})", file=sys.stderr,
+          flush=True)
+    return mesh
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1091,10 +1117,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-active", type=int, default=0, metavar="N",
                    help="serve only the N loudest non-silent channels "
                         "(device-side squelch compaction; 0 = all)")
-    p.add_argument("--mesh", type=_mesh_arg, default=0, metavar="D",
-                   help="not in this port: one card only (0)")
-    p.add_argument("--shard-fft", nargs=0, action=_RejectShardFFT,
-                   help="not in this port")
+    p.add_argument("--mesh", type=int, default=0, metavar="D",
+                   help="shard the channel axis over a D-device mesh "
+                        "(one logical bank spanning devices; channels are "
+                        "padded to a device multiple).  For capacity only: "
+                        "one thread queues the shards in turn, so a block "
+                        "runs several times slower than on one card")
+    p.add_argument("--shard-fft", action="store_true",
+                   help="with --mesh: distribute the wideband master FFT "
+                        "itself (the >100 Msps sequence-scaling path); "
+                        "no faster than the replicated FFT on any geometry "
+                        "measured")
     p.add_argument("--profile", metavar="DIR",
                    help="write a torch.profiler trace of the run to DIR")
     return p
@@ -1173,10 +1206,13 @@ def _run_bank(d: BankDaemon, args) -> int:
                 pending: deque = deque()
                 L_dec = d.cfg.L_dec
 
+                # mesh-padding rows never compete for a slot
+                nv = d.n_real if d.n_real != d.cfg.n_channels else None
+
                 def step(block):
                     t0 = time.perf_counter()
-                    pcm, idx, diag = d.bank.process_active(block,
-                                                           args.max_active)
+                    pcm, idx, diag = d.bank.process_active(
+                        block, args.max_active, n_valid=nv)
                     t0 = d.timing.add("step", t0)
                     # every leaf the emit path reads, status diag included
                     pending.append(HostCopy([pcm, idx, diag.get("snr"),

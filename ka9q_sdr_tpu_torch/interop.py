@@ -6,7 +6,9 @@ FMState, AMState, LinearState, AGCState, OscState), plain tuples (the PLL's half
 states) and None (absent rings); map it to numpy leaves
 (``jax.tree_util.tree_map(np.asarray, state)``) and ``state_from_jax``
 builds the port's tree of the same names on a device.  ``state_to_numpy``
-goes back.  The uint32 phase/frequency words become int64 in the port and
+goes back.  A sharded bank state (the JAX package's global arrays split
+over a mesh, unpacked to complex leaves) maps to the port's sharded state
+on a ``parallel.mesh.ChannelMesh`` through ``sharded_state_from_jax``.  The uint32 phase/frequency words become int64 in the port and
 uint32 again on the way back; complex64 stays complex64.
 """
 
@@ -23,7 +25,7 @@ from .models.receiver import ReceiverState
 from .ops.agc import AGCState
 from .ops.nco import OscState
 
-__all__ = ["state_from_jax", "state_to_numpy"]
+__all__ = ["state_from_jax", "state_to_numpy", "sharded_state_from_jax"]
 
 _PORT = {cls.__name__: cls for cls in (BankState, ReceiverState, FMState,
                                        AMState, LinearState, AGCState,
@@ -65,3 +67,12 @@ def state_to_numpy(state):
     if isinstance(state, tuple):
         return tuple(state_to_numpy(x) for x in state)
     return state.detach().cpu().numpy()
+
+
+def sharded_state_from_jax(tree, mesh) -> tuple:
+    """A JAX-package BankState with numpy leaves (a sharded one's global
+    arrays gather to numpy with ``np.asarray``) -> the port's state split
+    over `mesh`, one BankState per device (``parallel.mesh``)."""
+    from .parallel.mesh import shard_bank_state
+
+    return shard_bank_state(mesh, state_from_jax(tree, device="cpu"))

@@ -21,7 +21,9 @@ What differs from the JAX package, by design:
 - State keeps complex tensors: there is no real-dtype packing boundary.
 - ``MultiBank`` holds ONE wideband overlap tensor, the same tensor in
   every group's state (the JAX package keeps a copy per group and reads
-  group 0's).
+  group 0's); on a mesh, one per device.
+- On a mesh (``parallel.mesh``) the state is a tuple of per-device
+  BankStates and live control edits the shard that owns the channel.
 """
 
 from __future__ import annotations
@@ -296,20 +298,32 @@ def bank_recenter(cfg: BankConfig, state: BankState) -> BankState:
 
 
 def bank_channelize(
-    cfg: BankConfig, state: BankState, fdomain: torch.Tensor
+    cfg: BankConfig, state: BankState, fdomain,
 ) -> tuple[torch.Tensor, OscState, torch.Tensor]:
     """Shared-FFT channel extraction: gather + response + block phase +
     batched IFFT + residual NCO.  Returns (new_r, new_nco, baseband) with
-    baseband (B, L_dec) complex64."""
+    baseband (B, L_dec) complex64.
+
+    fdomain: the (N,) spectrum, or the distributed FFT's comb slices (a
+    list from ``parallel.dfft.make_dfft_sm``), from which each channel's
+    bins are gathered where they live (the JAX package's ``bin_perm``, a
+    permuted spectrum read through an index, has no twin: the sharded step
+    reads the comb slices)."""
     N, N_dec, L_dec = cfg.N, cfg.N_dec, cfg.L_dec
     # the JAX package's expression: f32 residue, complex64 exponent
     phi = torch.exp((-2j * np.pi / N) * state.r.to(torch.float32))
     new_r = (state.r + state.dr) % N
     new_nco, lo = osc_block(state.nco, L_dec)
     base = torch.as_tensor(cfg.base_idx, dtype=torch.int64,
-                           device=fdomain.device)
+                           device=state.k.device)
     idx = (base[None, :] + state.k[:, None]) % N
-    f_fd = fdomain[idx] * state.resp[None, :] * phi[:, None]
+    if isinstance(fdomain, torch.Tensor):
+        gathered = fdomain[idx]
+    else:
+        from ..parallel.dfft import comb_gather
+
+        gathered = comb_gather(fdomain, idx)
+    f_fd = gathered * state.resp[None, :] * phi[:, None]
     if _out_type(cfg.mode) is FilterType.CROSS_CONJ:
         return new_r, new_nco, _isb_combine(f_fd, lo, N_dec, L_dec)
     y = torch.fft.ifft(f_fd, dim=-1) * N_dec
@@ -364,6 +378,13 @@ def bank_step(
     (state, audio, diag); audio is (B, L_dec) float32."""
     samp = iq_block * state.gain_factor
     overlap, fdomain = master_execute(cfg.master, state.overlap, samp)
+    return _bank_step_spectrum(cfg, state, overlap, fdomain)
+
+
+def _bank_step_spectrum(cfg: BankConfig, state: BankState,
+                        overlap: torch.Tensor, fdomain):
+    """The bank step after the master FFT: recenter, channelize, demod, and
+    the new state holding `overlap`."""
     state = bank_recenter(cfg, state)   # k-hops for swept channels
     new_r, new_nco, baseband = bank_channelize(cfg, state, fdomain)
     dstate, audio, diag = bank_demod(cfg, state.demod, baseband)
@@ -395,8 +416,31 @@ def bank_step_i16(
     return state, (_pcm(audio) if pcm_out else audio), diag
 
 
+def _top_active(peak: torch.Tensor, max_active: int,
+                n_valid: int | None) -> torch.Tensor:
+    """Indices of the max_active largest audio peaks; rows at or past
+    n_valid (mesh padding) never compete."""
+    if n_valid is not None and n_valid < peak.shape[0]:
+        keep = torch.arange(peak.shape[0], device=peak.device) < n_valid
+        peak = torch.where(keep, peak, torch.full_like(peak, -torch.inf))
+    return torch.topk(peak, max_active).indices
+
+
+def _active_pcm(sel: torch.Tensor, idx: torch.Tensor, n_valid: int | None):
+    """The selected rows as int16 PCM and their indices, -1 where the row is
+    silent (the all-zero-packet test of audio.c:54) or padding."""
+    pcm = _pcm(sel)
+    active = torch.amax(torch.abs(pcm), dim=-1) > 0
+    if n_valid is not None:
+        # padding rows still fill slots when max_active > n_valid
+        active = active & (idx < n_valid)
+    idx = torch.where(active, idx, torch.full_like(idx, -1))
+    return pcm, idx.to(torch.int32)
+
+
 def bank_step_active(
-    cfg: BankConfig, state: BankState, x_i16: torch.Tensor, max_active: int
+    cfg: BankConfig, state: BankState, x_i16: torch.Tensor, max_active: int,
+    n_valid: int | None = None,
 ):
     """bank_step_i16 with device-side active-channel compaction (the
     reference's silence suppression, audio.c:102-113).
@@ -404,16 +448,15 @@ def bank_step_active(
     Returns (state, pcm_i16 (max_active, L_dec) (stereo modes: (max_active,
     2*L_dec), each row its channel's (L_dec, 2) audio flattened),
     idx (max_active,) int32, diag): the top-max_active channels by audio
-    peak as int16 PCM; idx[i] = -1 marks an unused slot (channel silent)."""
+    peak as int16 PCM; idx[i] = -1 marks an unused slot (channel silent).
+    n_valid: only the first n_valid channels compete for slots (mesh
+    padding rows are excluded, parallel.mesh.pad_channels)."""
     state, audio, diag = bank_step_i16(cfg, state, x_i16)
     flat = audio.reshape(audio.shape[0], -1)
-    peak = torch.amax(torch.abs(flat), dim=-1)
-    _, idx = torch.topk(peak, max_active)
-    pcm = _pcm(flat[idx])
-    # all-zero int16 audio is inactive: the all-zero-packet test of audio.c:54
-    active = torch.amax(torch.abs(pcm), dim=-1) > 0
-    idx = torch.where(active, idx, torch.full_like(idx, -1))
-    return state, pcm, idx.to(torch.int32), diag
+    idx = _top_active(torch.amax(torch.abs(flat), dim=-1), max_active,
+                      n_valid)
+    pcm, idx = _active_pcm(flat[idx], idx, n_valid)
+    return state, pcm, idx, diag
 
 
 def _set_ch(t: torch.Tensor, channel: int, val) -> torch.Tensor:
@@ -590,53 +633,103 @@ def swap_filter_response(cfg: BankConfig, state: BankState,
     return cfg, state._replace(resp=leaf)
 
 
+def _swap_filter_shards(cfg: BankConfig, states, **edges):
+    """swap_filter_response on a sharded state: the response is replicated,
+    so every shard gets the same new one."""
+    cfg, s0 = swap_filter_response(cfg, states[0], **edges)
+    return cfg, tuple(s._replace(resp=s0.resp.to(s.resp.device))
+                      for s in states)
+
+
+def _edit_row(states, n_per_shard: int | None, channel: int, fn):
+    """fn(state, row, shard) on the row of `channel`: on a sharded state
+    (n_per_shard rows on each device) the shard that owns it is edited."""
+    if n_per_shard is None:
+        return fn(states, channel, 0)
+    d, i = divmod(channel, n_per_shard)
+    states = list(states)
+    states[d] = fn(states[d], i, d)
+    return tuple(states)
+
+
 class ChannelBank:
-    """Host wrapper: config + state on one named device + per-block calls."""
+    """Host wrapper: config + state + per-block calls, on one named device
+    or sharded over a mesh.
+
+    mesh: a ``parallel.mesh.ChannelMesh`` to shard the channel axis over
+    (one logical bank spanning devices, the master/slave fan-out of
+    filter.c:22-35 at multi-device scale); cfg.n_channels must be a
+    multiple of its size (``parallel.mesh.pad_channels`` pads a frequency
+    list), and the state is then a tuple of per-device BankStates.
+    shard_fft also distributes the master FFT (``parallel.dfft``).  Without
+    a mesh the caller names the device."""
 
     def __init__(self, cfg: BankConfig, freqs_hz: Sequence[float], *,
-                 device):
-        self.device = torch.device(device)
-        self.cfg = cfg.to(self.device)
+                 device=None, mesh=None, shard_fft: bool = False):
+        if (device is None) == (mesh is None):
+            raise ValueError("ChannelBank takes a device or a mesh")
         self.freqs = list(freqs_hz)
-        self.state = bank_init(cfg, freqs_hz, device=self.device)
+        self.mesh = mesh
+        self.shard_fft = shard_fft
+        if mesh is None:
+            self.device = torch.device(device)
+            self.cfg = cfg.to(self.device)
+            self.state = bank_init(cfg, freqs_hz, device=self.device)
+            self._per_shard = None
+        else:
+            from ..parallel.mesh import ShardedBankStep, shard_bank_state
+
+            self.device = mesh.devices[0]
+            self.cfg = cfg
+            self._sharded = ShardedBankStep(cfg, mesh, shard_fft)
+            self._per_shard = self._sharded.b
+            self.state = shard_bank_state(
+                mesh, bank_init(cfg, freqs_hz, device="cpu"))
 
     def _put(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
+    def _run(self, x, ingest: str, pcm_out: bool):
+        if self.mesh is not None:
+            self.state, audio, diag = self._sharded(self.state, x, ingest,
+                                                    pcm_out)
+        elif ingest == "i16":
+            self.state, audio, diag = bank_step_i16(self.cfg, self.state, x,
+                                                    pcm_out=pcm_out)
+        else:
+            self.state, audio, diag = bank_step(self.cfg, self.state, x)
+        return audio, diag
+
     def process(self, iq_block):
         """iq_block: (L,) complex (numpy or tensor).  Returns (audio, diag)."""
-        self.state, audio, diag = bank_step(
-            self.cfg, self.state, self._put(iq_block, torch.complex64))
-        return audio, diag
+        return self._run(self._put(iq_block, torch.complex64), "f32", False)
 
     def process_i16(self, x_i16):
         """Raw (L, 2) int16 ingest.  Returns (audio, diag)."""
-        self.state, audio, diag = bank_step_i16(
-            self.cfg, self.state, self._put(x_i16, torch.int16))
-        return audio, diag
+        return self._run(self._put(x_i16, torch.int16), "i16", False)
 
     def process_i16_pcm(self, x_i16):
         """int16 in, int16 PCM (B, L_dec) out.  Returns (pcm, diag)."""
-        self.state, pcm, diag = bank_step_i16(
-            self.cfg, self.state, self._put(x_i16, torch.int16), pcm_out=True)
-        return pcm, diag
+        return self._run(self._put(x_i16, torch.int16), "i16", True)
 
     def process_scan_i16(self, x_i16_blocks, pcm_out: bool = False):
         """Demodulate (k, L, 2) int16 blocks in order.  Returns audio
         (k, B, L_dec), int16 when pcm_out."""
         blocks = self._put(x_i16_blocks, torch.int16)
-        outs = []
-        for x in blocks:
-            self.state, audio, _ = bank_step_i16(self.cfg, self.state, x,
-                                                 pcm_out=pcm_out)
-            outs.append(audio)
-        return torch.stack(outs)
+        return torch.stack([self._run(x, "i16", pcm_out)[0] for x in blocks])
 
-    def process_active(self, x_i16, max_active: int = 64):
+    def process_active(self, x_i16, max_active: int = 64,
+                       n_valid: int | None = None):
         """int16 in; int16 PCM of the top-max_active non-silent channels
-        out, plus their channel indices (-1 = unused slot)."""
-        self.state, pcm, idx, diag = bank_step_active(
-            self.cfg, self.state, self._put(x_i16, torch.int16), max_active)
+        out, plus their channel indices (-1 = unused slot).  n_valid keeps
+        mesh-padding rows out of the compaction."""
+        x = self._put(x_i16, torch.int16)
+        if self.mesh is not None:
+            self.state, pcm, idx, diag = self._sharded.active(
+                self.state, x, max_active, n_valid)
+        else:
+            self.state, pcm, idx, diag = bank_step_active(
+                self.cfg, self.state, x, max_active, n_valid)
         return pcm, idx, diag
 
     def tune(self, channel: int, freq_hz: float) -> None:
@@ -644,24 +737,36 @@ class ChannelBank:
         set_freq at bank scale; see bank_tune)."""
         # device state first: if it rejects the frequency, the host list
         # must not desync from it
-        self.state = bank_tune(self.cfg, self.state, channel, freq_hz)
+        self.state = _edit_row(
+            self.state, self._per_shard, channel,
+            lambda s, i, _: bank_tune(self.cfg, s, i, freq_hz))
         self.freqs[channel] = freq_hz
 
     def set_filter(self, low: float | None = None, high: float | None = None,
                    kaiser_beta: float | None = None) -> None:
         """Hot-swap the bank's shared frequency response
         (swap_filter_response)."""
-        self.cfg, self.state = swap_filter_response(
-            self.cfg, self.state, low=low, high=high, kaiser_beta=kaiser_beta)
+        edges = dict(low=low, high=high, kaiser_beta=kaiser_beta)
+        if self.mesh is None:
+            self.cfg, self.state = swap_filter_response(self.cfg, self.state,
+                                                        **edges)
+            return
+        from ..parallel.mesh import ShardedBankStep
+
+        self.cfg, self.state = _swap_filter_shards(self.cfg, self.state,
+                                                   **edges)
+        self._sharded = ShardedBankStep(self.cfg, self.mesh, self.shard_fft)
 
     def set_doppler(self, channel: int, doppler_hz: float,
                     rate_hz_s: float) -> None:
         """Doppler-steer one channel (set_doppler, radio.c:180-198): offset
         and sweep rate on top of its base frequency (self.freqs, which
         retunes keep current)."""
-        self.state = bank_set_doppler(
-            self.cfg, self.state, channel, self.freqs[channel],
-            doppler_hz=doppler_hz, rate_hz_s=rate_hz_s)
+        self.state = _edit_row(
+            self.state, self._per_shard, channel,
+            lambda s, i, _: bank_set_doppler(
+                self.cfg, s, i, self.freqs[channel], doppler_hz=doppler_hz,
+                rate_hz_s=rate_hz_s))
 
     def steer_adapter(self, channel: int):
         """A per-channel facade with the Receiver steering interface
@@ -699,11 +804,8 @@ def multibank_step(cfgs: Sequence[BankConfig], states: Sequence[BankState],
                                       iq_block)
     new_states, outs = [], []
     for cfg, s in zip(cfgs, states):
-        s = bank_recenter(cfg, s)
-        new_r, new_nco, bb = bank_channelize(cfg, s, fdomain)
-        dstate, audio, diag = bank_demod(cfg, s.demod, bb)
-        new_states.append(s._replace(overlap=overlap, r=new_r, nco=new_nco,
-                                     demod=dstate))
+        ns, audio, diag = _bank_step_spectrum(cfg, s, overlap, fdomain)
+        new_states.append(ns)
         outs.append((audio, diag))
     return new_states, outs
 
@@ -714,13 +816,23 @@ class MultiBank:
     group (mode, [freqs]) has its own config, state and batched demod.
 
     groups: list of (mode_name, [freq_hz, ...]).  Extra keywords go to
-    make_bank_config.  One device, named by the caller; no mesh."""
+    make_bank_config.  On one named device, or with `mesh` every group's
+    channel axis sharded over it: each group is padded to a multiple of
+    the mesh size (``group_real[g]`` rows of group g's audio are real, the
+    rest padding), the wideband block and master FFT replicated."""
 
     def __init__(self, groups: Sequence[tuple[str, Sequence[float]]],
                  samprate: float = 24.576e6, L: int = 491520,
-                 M: int = 557057, *, device, **kw):
-        self.device = torch.device(device)
+                 M: int = 557057, *, device=None, mesh=None, **kw):
+        if (device is None) == (mesh is None):
+            raise ValueError("MultiBank takes a device or a mesh")
+        self.mesh = mesh
         self.group_real = [len(freqs) for _, freqs in groups]
+        if mesh is not None:
+            from ..parallel.mesh import pad_channels
+
+            groups = [(mode, pad_channels(freqs, mesh.size))
+                      for mode, freqs in groups]
         self.group_freqs = [list(freqs) for _, freqs in groups]
         cfgs = [make_bank_config(len(freqs), mode, samprate=samprate, L=L,
                                  M=M, **kw) for mode, freqs in groups]
@@ -732,61 +844,105 @@ class MultiBank:
                 raise ValueError(
                     f"MultiBank groups must share one master: "
                     f"{c.master} != {master}")
-        self.cfgs = [c.to(self.device) for c in cfgs]
-        states = [bank_init(c, freqs, device=self.device)
-                  for c, freqs in zip(cfgs, self.group_freqs)]
-        self.states = [s._replace(overlap=states[0].overlap) for s in states]
-        # each group's freshly initialised demod subtree, for init_channel's
-        # per-row respawn; no state tensor is ever written in place, so
-        # holding these references keeps them as they were built
-        self._fresh_demod = [s.demod for s in self.states]
+        if mesh is None:
+            self.device = torch.device(device)
+            self.cfgs = [c.to(self.device) for c in cfgs]
+            states = [bank_init(c, freqs, device=self.device)
+                      for c, freqs in zip(cfgs, self.group_freqs)]
+            self.states = [s._replace(overlap=states[0].overlap)
+                           for s in states]
+            self._per_shard = [None] * len(cfgs)
+        else:
+            from ..parallel.mesh import shard_bank_state
+
+            self.device = mesh.devices[0]
+            self.cfgs = cfgs
+            self._per_shard = [c.n_channels // mesh.size for c in cfgs]
+            self._build_shard_cfgs()
+            states = [shard_bank_state(mesh, bank_init(c, f, device="cpu"))
+                      for c, f in zip(cfgs, self.group_freqs)]
+            # one overlap per device, shared by every group
+            self.states = [tuple(s._replace(overlap=states[0][d].overlap)
+                                 for d, s in enumerate(st))
+                           for st in states]
+        # each group's freshly initialised demod subtree (per shard on a
+        # mesh), for init_channel's per-row respawn; no state tensor is ever
+        # written in place, so holding these references keeps them as built
+        self._fresh_demod = [
+            s.demod if mesh is None else [sh.demod for sh in s]
+            for s in self.states]
+
+    def _build_shard_cfgs(self) -> None:
+        from ..parallel.mesh import shard_configs
+
+        self._shard_cfgs = [shard_configs(c, self.mesh) for c in self.cfgs]
 
     def _put(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    def _step(self, x: torch.Tensor) -> list:
+        if self.mesh is None:
+            self.states, outs = multibank_step(self.cfgs, self.states, x)
+            return outs
+        from ..parallel.mesh import gather_shards
+
+        per = [multibank_step([c[d] for c in self._shard_cfgs],
+                              [st[d] for st in self.states], x.to(dev))
+               for d, dev in enumerate(self.mesh.devices)]
+        G = len(self.states)
+        self.states = [tuple(p[0][g] for p in per) for g in range(G)]
+        outs = []
+        for g in range(G):
+            shards = [p[1][g] for p in per]
+            outs.append((
+                gather_shards([a for a, _ in shards], self.device),
+                {k: gather_shards([dg[k] for _, dg in shards], self.device)
+                 for k in shards[0][1]}))
+        return outs
 
     def process(self, iq_block) -> list:
         """iq_block: (L,) complex or (L, 2) float packed I/Q (numpy or
         tensor).  Returns [(audio, diag), ...] per group."""
         x = torch.as_tensor(iq_block, device=self.device)
-        self.states, outs = multibank_step(self.cfgs, self.states,
-                                           _complex_block(x))
-        return outs
+        return self._step(_complex_block(x))
 
     def process_i16(self, x_i16) -> list:
         """Raw (L, 2) int16 ingest, scaled on the device (radio.c:38).
         Returns [(audio, diag), ...] per group."""
-        self.states, outs = multibank_step(
-            self.cfgs, self.states, iq_from_i16(self._put(x_i16, torch.int16)))
-        return outs
+        return self._step(iq_from_i16(self._put(x_i16, torch.int16)))
 
     def process_i16_pcm(self, x_i16) -> list:
         """int16 in, int16 PCM out.  Returns [(pcm, diag), ...] per group."""
         return [(_pcm(audio), diag) for audio, diag in self.process_i16(x_i16)]
 
+    def _edit(self, group: int, idx: int, fn) -> None:
+        self.states[group] = _edit_row(self.states[group],
+                                       self._per_shard[group], idx, fn)
+
     def tune(self, group: int, idx: int, freq_hz: float) -> None:
         """Retune one channel of one group, phase-continuously
         (ChannelBank.tune)."""
         # device state first, host list second (see ChannelBank.tune)
-        self.states[group] = bank_tune(self.cfgs[group], self.states[group],
-                                       idx, freq_hz)
+        self._edit(group, idx, lambda s, i, _: bank_tune(
+            self.cfgs[group], s, i, freq_hz))
         self.group_freqs[group][idx] = freq_hz
 
     def set_doppler(self, group: int, idx: int, doppler_hz: float,
                     rate_hz_s: float) -> None:
         """Doppler-steer one channel of one group (ChannelBank.set_doppler)."""
-        self.states[group] = bank_set_doppler(
-            self.cfgs[group], self.states[group], idx,
-            self.group_freqs[group][idx],
-            doppler_hz=doppler_hz, rate_hz_s=rate_hz_s)
+        self._edit(group, idx, lambda s, i, _: bank_set_doppler(
+            self.cfgs[group], s, i, self.group_freqs[group][idx],
+            doppler_hz=doppler_hz, rate_hz_s=rate_hz_s))
 
     def init_channel(self, group: int, idx: int, freq_hz: float) -> None:
         """(Re)commission one slot of one group: fresh demod state for the
         row (the reference's respawned demod thread on a mode change,
         radio.c:322-374), a phase-continuous retune, and a cleared Doppler
         sweep."""
-        self.states[group] = bank_reset_demod_row(
-            self.states[group], self._fresh_demod[group], idx,
-            len(self.group_freqs[group]))
+        fresh = self._fresh_demod[group]
+        n = self._per_shard[group] or len(self.group_freqs[group])
+        self._edit(group, idx, lambda s, i, d: bank_reset_demod_row(
+            s, fresh if self.mesh is None else fresh[d], i, n))
         self.tune(group, idx, freq_hz)
         self.set_doppler(group, idx, 0.0, 0.0)
 
@@ -795,9 +951,14 @@ class MultiBank:
                    kaiser_beta: float | None = None) -> None:
         """Hot-swap ONE group's shared frequency response; the other
         groups' responses are untouched (swap_filter_response)."""
-        self.cfgs[group], self.states[group] = swap_filter_response(
-            self.cfgs[group], self.states[group], low=low, high=high,
-            kaiser_beta=kaiser_beta)
+        edges = dict(low=low, high=high, kaiser_beta=kaiser_beta)
+        if self.mesh is None:
+            self.cfgs[group], self.states[group] = swap_filter_response(
+                self.cfgs[group], self.states[group], **edges)
+            return
+        self.cfgs[group], self.states[group] = _swap_filter_shards(
+            self.cfgs[group], self.states[group], **edges)
+        self._build_shard_cfgs()
 
 
 def make_bank(n_channels: int, mode: str = "FM",

@@ -54,6 +54,8 @@ __all__ = [
     "receiver_init",
     "receiver_step",
     "receiver_scan",
+    "mix_second_lo",
+    "psd128",
     "scale_iq",
 ]
 
@@ -204,6 +206,25 @@ def receiver_init(cfg: ReceiverConfig, batch_shape=(), *,
     )
 
 
+def mix_second_lo(state: ReceiverState, samp: torch.Tensor, L: int):
+    """The second LO and the Doppler NCO ramps over one L-sample block,
+    mixed into `samp` (radio.c:131-136; both keep phase through gaps).
+    Returns (lo2, doppler, mixed)."""
+    lo2, lo = osc_block(state.lo2, L)
+    doppler, dlo = osc_block(state.doppler, L)
+    return lo2, doppler, samp * lo * dlo
+
+
+def psd128(fdomain: torch.Tensor) -> torch.Tensor:
+    """128-bin peak-held power spectrum of the master FFT, ordered
+    -fs/2..+fs/2, for the display's spectrum pane."""
+    ps = torch.fft.fftshift(fdomain.real ** 2 + fdomain.imag ** 2, dim=-1)
+    nb = 128
+    trim = (ps.shape[-1] // nb) * nb
+    return torch.amax(ps[..., :trim].reshape(ps.shape[:-1] + (nb, -1)),
+                      dim=-1)
+
+
 def receiver_step(
     cfg: ReceiverConfig,
     state: ReceiverState,
@@ -222,11 +243,7 @@ def receiver_step(
     # block_energy * 0.5 / in_cnt (two components per sample, radio.c:143-144)
     if_power = 0.5 * torch.mean(samp.real ** 2 + samp.imag ** 2, dim=-1)
 
-    # Second LO and Doppler (radio.c:131-136); both keep phase through gaps
-    lo2, lo = osc_block(state.lo2, cfg.L)
-    samp = samp * lo
-    doppler, dlo = osc_block(state.doppler, cfg.L)
-    samp = samp * dlo
+    lo2, doppler, samp = mix_second_lo(state, samp, cfg.L)
 
     overlap, fdomain = master_execute(cfg.master, state.overlap, samp)
 
@@ -244,13 +261,7 @@ def receiver_step(
     diag = dict(diag)
     diag["n0"] = n0
     diag["if_power"] = if_power
-    # 128-bin peak-held power spectrum of the master FFT, ordered
-    # -fs/2..+fs/2, for the display's spectrum pane
-    ps = torch.fft.fftshift(fdomain.real ** 2 + fdomain.imag ** 2, dim=-1)
-    nb = 128
-    trim = (ps.shape[-1] // nb) * nb
-    diag["psd128"] = torch.amax(
-        ps[..., :trim].reshape(ps.shape[:-1] + (nb, -1)), dim=-1)
+    diag["psd128"] = psd128(fdomain)
 
     new_state = ReceiverState(
         overlap=overlap,

@@ -14,6 +14,8 @@ from .fftfilt import (
     SlaveSpec,
     master_init,
     master_execute,
+    fft_fourstep,
+    FOURSTEP_MIN,
     slave_execute,
     slave_bin_indices,
     noise_gain,

@@ -6,9 +6,12 @@ any number of *slaves*, each with its own frequency response and decimation
 ratio, share that FFT and do only a bin-wise multiply plus a short inverse
 FFT.  State (the M-1 sample overlap) is explicit and carried by the caller.
 
-Every FFT is ``torch.fft`` at every size: the JAX package's MXU matmul FFT
-and four-step split are TPU shapes (PARITY.md #10) and have no counterpart
-here.  Bin selection, conjugate folding, the CROSS_CONJ ISB trick and the
+Every FFT of the filter engine is ``torch.fft`` at every size: the JAX
+package's MXU matmul FFT is a TPU shape (PARITY.md #10) and has no
+counterpart here, and ``master_execute`` never takes the four-step split.
+``fft_fourstep`` is ported for the distributed master FFT
+(``parallel.dfft``), which uses it for local slices of 2^25 points or more,
+as the JAX package does.  Bin selection, conjugate folding, the CROSS_CONJ ISB trick and the
 FFT scaling match filter.c exactly; see slave_execute for the mapping.
 """
 
@@ -26,6 +29,8 @@ __all__ = [
     "SlaveSpec",
     "master_init",
     "master_execute",
+    "fft_fourstep",
+    "FOURSTEP_MIN",
     "slave_execute",
     "slave_bin_indices",
     "noise_gain",
@@ -97,6 +102,34 @@ def master_init(spec: MasterSpec, batch_shape=(), *, device) -> torch.Tensor:
     dtype = torch.float32 if spec.in_type is FilterType.REAL else torch.complex64
     return torch.zeros(tuple(batch_shape) + (spec.M - 1,), dtype=dtype,
                        device=device)
+
+
+#: The size from which the JAX package's master takes the four-step split
+#: (ops/fftfilt.py there); the port's distributed FFT keeps the threshold for
+#: its local slices, its master never takes the split.
+FOURSTEP_MIN = 1 << 25
+
+
+def fft_fourstep(z: torch.Tensor) -> torch.Tensor:
+    """Natural-order forward FFT over the last axis by the four-step
+    (Bailey) decomposition, the JAX package's ``fft_fourstep``: N = P*Q with
+    P, Q ~ sqrt(N), Q-point FFTs over columns, the twiddle W_N^(k1*p),
+    P-point FFTs over rows, transpose back.  The twiddle's phase is reduced
+    exactly mod N in integers before the float32 multiply."""
+    N = z.shape[-1]
+    P = 1 << (int(np.log2(N)) // 2)
+    if N % P:
+        return torch.fft.fft(z, dim=-1)
+    Q = N // P
+    zz = z.reshape(z.shape[:-1] + (Q, P))
+    C = torch.fft.fft(zz, dim=-2)                      # Q-pt FFT per column
+    k1 = torch.arange(Q, dtype=torch.int64, device=z.device)[:, None]
+    p = torch.arange(P, dtype=torch.int64, device=z.device)[None, :]
+    frac = ((k1 * p) % N).to(torch.float32) * float(np.float32(1.0 / N))
+    ang = frac * (-2.0 * np.pi)
+    D = torch.fft.fft(C * torch.complex(torch.cos(ang), torch.sin(ang)),
+                      dim=-1)                          # D[k1,k2] = X[k1+Q*k2]
+    return D.transpose(-1, -2).reshape(z.shape[:-1] + (N,))
 
 
 def master_execute(

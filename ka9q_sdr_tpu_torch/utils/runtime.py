@@ -15,30 +15,34 @@ class HostCopy:
     """One block's outputs on their way to the host.
 
     The constructor starts a ``non_blocking`` copy of each CUDA tensor into
-    pinned host memory and records one event behind them on the current
-    stream; ``wait()`` waits on that event only and returns numpy arrays.
-    CPU tensors are taken as they are.  Holding the source tensors until
-    then is safe because every step of the port returns fresh tensors; a
-    step that reused its output buffers (a captured CUDA graph) would have
-    to copy them out before the next replay."""
+    pinned host memory and records an event behind them on the current
+    stream of each device they come from (a mesh's outputs may lie on
+    several cards); ``wait()`` waits on those events only and returns numpy
+    arrays.  CPU tensors are taken as they are.  Holding the source tensors
+    until then is safe because every step of the port returns fresh
+    tensors; a step that reused its output buffers (a captured CUDA graph)
+    would have to copy them out before the next replay."""
 
     def __init__(self, tensors):
         self._host = []
-        self._event = None
+        devices = []
         for t in tensors:
             if t is not None and t.is_cuda:
                 h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 h.copy_(t, non_blocking=True)
+                if t.device not in devices:
+                    devices.append(t.device)
                 t = h
-                if self._event is None:
-                    self._event = torch.cuda.Event()
             self._host.append(t)
-        if self._event is not None:
-            self._event.record()
+        self._events = []
+        for dev in devices:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+            self._events.append(ev)
 
     def wait(self) -> list[np.ndarray | None]:
-        if self._event is not None:
-            self._event.synchronize()
+        for ev in self._events:
+            ev.synchronize()
         return [None if h is None else h.numpy() for h in self._host]
 
 

@@ -430,19 +430,22 @@ def test_channel_file_runs_the_mixed_daemon(tmp_path):
 # ---- the live path ----
 
 @pytest.mark.parametrize("path", ["native", "native-max-active",
-                                  "no-native"])
+                                  "no-native", "native-max-active-mesh"])
 def test_live_input_over_loopback(tmp_path, capsys, monkeypatch, path):
     """bankd -I over loopback multicast, paced by the port's RTPSender:
     blocks arrive through the native engine (int16 blocks; with
     --max-active, compacted PCM three blocks deep and the timing split
-    printed) or the Python assembler, and PCM goes out on -R."""
+    printed) or the Python assembler, and PCM goes out on -R.  With --mesh
+    3 the 8 channels pad to 9 and all 9 slots are asked for: the padding
+    row never takes one."""
     from ka9q_sdr_tpu_torch import native
     from ka9q_sdr_tpu_torch.net.multicast import setup_mcast
     from ka9q_sdr_tpu_torch.net.rtp import RTPHeader
 
     if path != "no-native" and not native.NATIVE_AVAILABLE:
         pytest.skip("no C++ toolchain")
-    k = ["native", "native-max-active", "no-native"].index(path)
+    k = ["native", "native-max-active", "no-native",
+         "native-max-active-mesh"].index(path)
     in_group, out_group = f"239.96.3.{10 + k}", f"239.96.3.{20 + k}:5630"
     n_blocks = 12
     argv = ["-I", f"{in_group}:5630", "-R", out_group, "-m", "AM",
@@ -454,6 +457,15 @@ def test_live_input_over_loopback(tmp_path, capsys, monkeypatch, path):
     if path == "native-max-active":
         argv += ["--max-active", "3"]
         monkeypatch.setenv("KA9Q_BANKD_TIMING", "1")
+    emitted = []
+    if path == "native-max-active-mesh":
+        argv += ["--max-active", "9", "--mesh", "3"]
+        emit = TD.BankDaemon.emit_active
+
+        def emit_active(self, copy, L_dec):
+            emitted.append(copy.wait()[1])
+            emit(self, copy, L_dec)
+        monkeypatch.setattr(TD.BankDaemon, "emit_active", emit_active)
     pcm_rx = setup_mcast(out_group, output=False)
     pcm_rx.settimeout(0.0)
     rc = {}
@@ -495,11 +507,17 @@ def test_live_input_over_loopback(tmp_path, capsys, monkeypatch, path):
         tx.close()
     pcm_rx.close()
     assert not th.is_alive() and rc.get("rc") == 0
-    rows = 3 if path == "native-max-active" else N_CH
+    rows = {"native-max-active": 3, "native-max-active-mesh": 9}.get(path,
+                                                                      N_CH)
     pcm = _read_pcm(tmp_path / "live.pcm", rows=rows)
     assert pcm.shape[0] == n_blocks
     assert 3 in ssrcs, ssrcs                  # channel 2 on the wire
-    if path == "native-max-active":
+    if path == "native-max-active-mesh":
+        idx = np.stack(emitted)
+        assert idx.shape == (n_blocks, 9) and idx.max() < N_CH
+        assert (idx == -1).sum(axis=1).min() >= 1   # the padding row's slot
+        assert max(ssrcs) <= N_CH
+    elif path == "native-max-active":
         assert "bankd timing: read" in capsys.readouterr().err
     else:
         tail = pcm[2:, 2].ravel().astype(np.float64)
@@ -518,9 +536,18 @@ def test_without_a_card_the_daemon_exits(tmp_path, capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2"], ["--shard-fft"]])
+@pytest.mark.parametrize("flag", [["--mesh", "two"], ["--shard-fft", "x"]])
 def test_mesh_flags_rejected(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        TD.build_parser().parse_args(["--cpu", *flag])
-    assert e.value.code == 2
-    assert "not in the PyTorch port" in capsys.readouterr().err
+    """--mesh takes a device count and --shard-fft no value: malformed
+    flags are refused as the JAX daemon's parser refuses them (the flags
+    themselves run: tests/test_torch_parallel.py)."""
+    msgs = []
+    for mod in (TD, JD):
+        with pytest.raises(SystemExit) as e:
+            mod.build_parser().parse_args(["--cpu", *flag])
+        assert e.value.code == 2
+        msgs.append(capsys.readouterr().err.splitlines()[-1])
+    assert msgs[0] == msgs[1]
+    args = TD.build_parser().parse_args(["--cpu", "--mesh", "2",
+                                         "--shard-fft"])
+    assert args.mesh == 2 and args.shard_fft

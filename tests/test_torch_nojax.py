@@ -4,9 +4,11 @@ module and run two blocks of a tiny bank of each demodulator family, a live
 retune, a mixed-mode MultiBank, a receiver fed by the test modulator, a
 column FFT, the ``bankd`` and ``radio`` daemons on a tiny recording, the
 packet modem's session on an AFSK frame, two front-end blocks of a tiny
-recording, ``modulate`` on a few blocks, a band-plan lookup, a Mixer read
-and an Opus round trip (where libopus is present), on the CPU in a
-subprocess where ``import jax`` and ``import ka9q_sdr_tpu`` fail."""
+recording, ``modulate`` on a few blocks, a band-plan lookup, a Mixer read,
+an Opus round trip (where libopus is present), the sharded bank, the
+distributed FFT and ``bankd --mesh`` on CPU shards, and the stage profile,
+on the CPU in a subprocess where ``import jax`` and ``import ka9q_sdr_tpu``
+fail."""
 
 import subprocess
 import sys
@@ -141,6 +143,28 @@ if audio.OPUS_AVAILABLE:
     frame = np.repeat(np.sin(np.arange(960) / 7.0)[:, None], 2, 1) * 0.3
     pkts = [enc.encode(frame.astype(np.float32)) for _ in range(3)]
     assert [dec.decode(p).shape for p in pkts] == [(960, 2)] * 3
+from ka9q_sdr_tpu_torch import parallel, tools
+from ka9q_sdr_tpu_torch.parallel import dryrun, mesh as pmesh
+from ka9q_sdr_tpu_torch.tools import serve_soak, stage_profile
+from ka9q_sdr_tpu_torch.utils import timing
+mesh = pmesh.make_channel_mesh(4, cpu=True)
+cfg = make_bank_config(4, "FM", samprate=fs, L=L, M=34817)
+for shard_fft in (False, True):
+    sb = ChannelBank(cfg, [-3e5, -1e5, 1e5, 3e5], mesh=mesh,
+                     shard_fft=shard_fft)
+    pcm, idx, _ = sb.process_active(x, max_active=4, n_valid=3)
+    assert pcm.shape == (4, 960) and int(idx.max()) < 3
+spec = parallel.dfft(mesh, np.ones(64, np.complex64))
+assert abs(spec[0] - 64) < 1e-4 and np.abs(spec[1:]).max() < 1e-4
+out = os.path.join(tmp, "mesh.pcm")
+assert bankd.main(["--channels", "3", "-r", "1536000", "-m", "FM",
+                   "--iq-file", rec, "--cpu", "--mesh", "2",
+                   "--pcm-raw", out]) == 0
+assert os.path.getsize(out) == 2 * 3 * 960 * 2
+import contextlib, json
+with contextlib.redirect_stdout(io.StringIO()) as prof:
+    assert stage_profile.main(["--cpu", "--iters", "1"]) == 0
+assert json.loads(prof.getvalue())["full_ms"] > 0
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "ka9q_sdr_tpu")
                for m, mod in sys.modules.items() if mod is not None)
 print("ok")

@@ -293,3 +293,16 @@ def test_mode_table_matches_jax_package():
     text = "X  AM -1 +2 3 -4 5 0.5 mono square\nbad line\nY fm 9 1 0 0 0 0 flat"
     assert [dataclasses.astuple(m) for m in TM.parse_modes(text).values()] \
         == [dataclasses.astuple(m) for m in JM.parse_modes(text).values()]
+
+
+def test_data_modes_txt_is_the_jax_packages():
+    """data/modes.txt is a byte-equal copy of the JAX package's, and the
+    port's parser reads it as the shipped table."""
+    from pathlib import Path
+
+    from ka9q_sdr_tpu_torch.utils import modes as TM
+
+    root = Path(__file__).resolve().parent.parent
+    port = (root / "ka9q_sdr_tpu_torch/data/modes.txt").read_bytes()
+    assert port == (root / "ka9q_sdr_tpu/data/modes.txt").read_bytes()
+    assert TM.parse_modes(port.decode()) == TM.DEFAULT_MODES
