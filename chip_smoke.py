@@ -71,7 +71,17 @@ drives the channel bank through its user entry points:
   may take a slot); ``dryrun_multichip(4)``; the stage profile
   (``tools/stage_profile``) at 8192 channels on long blocks and 4096 at 20
   ms with the receiver's front end; and a 30 s serving soak
-  (``tools/serve_soak``) at 5120 channels.
+  (``tools/serve_soak``) at 5120 channels;
+- the captured CUDA graphs (``utils/graphs.py``), which every phase above
+  runs through: each path (the FM+PL bank at 4096 and 8192 channels, its
+  ``process_active``, CAM, AM and USB at 4096, ISB at 256, both mixed
+  MultiBank rows, the receiver in five modes, the 4-shard mesh in FM+PL
+  and CAM) held bit-equal, state included, to an eager twin
+  (``capture=False``) over 20 blocks with a retune, a Doppler step and a
+  filter swap, one replay a block on each device; an 8-block scan
+  (``process_scan_i16``, ``process_offline``) equal to 8 single eager
+  steps with one replay a call; and eager against captured ms/block,
+  device busy, capture time and the memory each holds, in one call.
 
 Times come from CUDA events.  Phases print their
 findings line by line.
@@ -1280,20 +1290,26 @@ def phase_offline(receiver, agc):
     rx = receiver.make_receiver("USB", device=DEV)
     rx.set_freq(rx_if)
     torch.cuda.synchronize()
-    agc.launches = 0
-    t0 = time.perf_counter()
-    audio = rx.process_offline(x16)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    check(agc.launches == nb, f"agc launches {agc.launches} == {nb}")
+    times = []
+    for _ in range(2):      # the first call captures the graph of nb blocks
+        agc.launches = 0
+        t0 = time.perf_counter()
+        audio = rx.process_offline(x16)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(agc.launches == nb, f"agc launches {agc.launches} == {nb}")
+    dt = times[1]
+    print(f"  the first call (warm-up, capture of {nb} blocks, replay) "
+          f"{times[0]:.3f} s, capture {rx.graphs[0].capture_s:.3f} s",
+          flush=True)
     a = audio.cpu().numpy()
     check(a.shape == (nb, 960) and np.isfinite(a).all(),
           f"audio {a.shape}, finite")
     f = tone_hz(_pcm16(a[-50:].reshape(-1)))
     check(abs(f - 1000.0) < 5.0, f"audio peak at {f:.1f} Hz")
     secs = nb * L / fs
-    print(f"  {nb} blocks ({secs:.2f} s of signal) in {dt:.3f} s: "
-          f"{secs / dt:.1f}x real time, {dt / nb * 1e3:.3f} ms/block "
+    print(f"  {nb} blocks ({secs:.2f} s of signal) in {dt:.3f} s, one "
+          f"replay: {secs / dt:.1f}x real time, {dt / nb * 1e3:.3f} ms/block "
           "(host clock, synchronised)", flush=True)
 
 
@@ -2771,6 +2787,290 @@ def phase_tools(stage_profile, serve_soak, ffill, smi):
           f"{ffill.launches - k0} [{smi}]")
 
 
+#: phase 30: blocks every captured wrapper and its eager twin run (a retune,
+#: a Doppler step and a filter swap at GRAPH_EDITS), the blocks of a scan,
+#: and the calls timed per wrapper (the long block: GRAPH_LONG_ITERS)
+GRAPH_BLOCKS, GRAPH_EDITS, GRAPH_SCAN = 20, (6, 10, 14), 8
+GRAPH_ITERS, GRAPH_LONG_ITERS = 20, 6
+#: phase 30's rows, for the summary it prints last
+GRAPH_ROWS = []
+
+
+def _bits(t):
+    """A tensor's bit patterns, so that NaN equals NaN and -0 is not +0."""
+    if t.is_complex():
+        t = torch.view_as_real(t)
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _bit_equal(a, b):
+    from ka9q_sdr_tpu_torch.utils.graphs import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(_bits(x), _bits(y)) for x, y in zip(la, lb))
+
+
+def _state(w):
+    return w.states if hasattr(w, "states") else w.state
+
+
+def _replays(w):
+    return sum(g.replays for g in w.graphs)
+
+
+def _twins(label, make, block, step, edits, smi, scan=None,
+           iters=GRAPH_ITERS, busy=True):
+    """A captured wrapper (make(True)) against its eager twin
+    (make(False)): GRAPH_BLOCKS blocks through step(w, x) with `edits`
+    ({block: (name, fn(w))}) between them, every output and the whole
+    state bit-equal after each block, one replay a block on each device;
+    `scan` = (blocks, run_scan(w, xs), run_single(w, x)): a scan on the
+    captured wrapper, one replay a device, bit-equal to the blocks stepped
+    one at a time on the twin.  Then ms/block of each by CUDA events (in
+    turns: eager, captured, captured, eager), device busy by device_ms,
+    the capture time and the memory each holds (busy=False: not the
+    busy time, for a mesh of several cards, where it is one per card)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    r0 = torch.cuda.memory_reserved()
+    cap, eag = make(True), make(False)
+    n_dev = len(cap.graphs)
+    differ, replays = [], []
+    for b in range(GRAPH_BLOCKS):
+        for w in (cap, eag):
+            if b in edits:
+                edits[b][1](w)
+        x = block(b)
+        r = _replays(cap)
+        got, want = step(cap, x), step(eag, x)
+        replays.append(_replays(cap) - r)
+        if not (_bit_equal(got, want) and _bit_equal(_state(cap),
+                                                     _state(eag))):
+            differ.append(b)
+    names = ", ".join(f"{n} before block {b}" for b, (n, _) in edits.items())
+    check(not differ, f"{label}: captured = eager twin bit for bit, state "
+          f"included, over {GRAPH_BLOCKS} blocks ({names}); blocks that "
+          f"differ: {differ}")
+    check(set(replays) == {n_dev}, f"{label}: replays a block {replays} "
+          f"(one a device: {n_dev})")
+    scan_ms = float("nan")
+    if scan is not None:
+        xs, run_scan, run_single = scan
+        r = _replays(cap)
+        got = run_scan(cap, xs)
+        n = _replays(cap) - r
+        want = torch.stack([run_single(eag, x) for x in xs])
+        check(torch.equal(_bits(got), _bits(want)) and n == n_dev
+              and _bit_equal(_state(cap), _state(eag)),
+              f"{label}: a {len(xs)}-block scan = {len(xs)} single eager "
+              f"steps bit for bit, state included; {n} replay(s) for the "
+              f"call")
+        del got, want
+        scan_ms = cuda_ms(lambda: run_scan(cap, xs), 3) / len(xs)
+        del xs
+    x = block(0)
+    run_c, run_e = (lambda: step(cap, x)), (lambda: step(eag, x))
+    run_c()
+    run_e()
+    e1, c1 = cuda_ms(run_e, iters), cuda_ms(run_c, iters)
+    c2, e2 = cuda_ms(run_c, iters), cuda_ms(run_e, iters)
+    busy_e = busy_c = float("nan")
+    if busy:
+        busy_e = sum(device_ms(run_e, 1) for _ in range(3)) / 3
+        busy_c = sum(device_ms(run_c, 1) for _ in range(3)) / 3
+    e, c = (e1 + e2) / 2, (c1 + c2) / 2
+    cap_s = sum(g.capture_s for g in cap.graphs)
+    n_graphs = sum(len(g.graphs) for g in cap.graphs)
+    del x
+    gc.collect()
+    torch.cuda.empty_cache()     # the cached blocks of neither wrapper
+    held = [torch.cuda.memory_reserved()]    # what each wrapper holds
+    del run_c, cap
+    gc.collect()
+    torch.cuda.empty_cache()
+    held.append(torch.cuda.memory_reserved())
+    del run_e, eag, w
+    gc.collect()
+    torch.cuda.empty_cache()
+    held.append(torch.cuda.memory_reserved())
+    held = [(held[0] - held[1]) / 2**20, (held[1] - held[2]) / 2**20]
+    idle = max(0.0, 1 - busy_c / c) if busy_c == busy_c else busy_c
+    print(f"  {label}: eager {e:.3f} ms/block ({e1:.3f}, {e2:.3f}), captured "
+          f"{c:.3f} ({c1:.3f}, {c2:.3f}): {e / c:.2f}x; device busy eager "
+          f"{busy_e:.3f}, captured {busy_c:.3f} ms/block, captured idle "
+          f"{idle:.0%}; a scan {scan_ms:.3f} ms/block; {n_graphs} graph(s) "
+          f"on {n_dev} device(s) captured in {cap_s:.2f} s; reserved memory: "
+          f"captured wrapper {held[0]:.1f} MiB (state and graph pools), "
+          f"eager twin {held[1]:.1f} MiB (of {r0 / 2**20:.1f} before) "
+          f"[{smi}]", flush=True)
+    GRAPH_ROWS.append((label, e, c, busy_e, busy_c, scan_ms, cap_s,
+                       held[0], held[1]))
+
+
+def _bank_edits(freqs, ch, low, high):
+    return {GRAPH_EDITS[0]: ("retune", lambda w: w.tune(ch[0], freqs[ch[0]]
+                                                        + 2000.0)),
+            GRAPH_EDITS[1]: ("Doppler step", lambda w: w.set_doppler(
+                ch[1], 50.0, 100.0)),
+            GRAPH_EDITS[2]: (f"set_filter({low:g}, {high:g})",
+                             lambda w: w.set_filter(low, high))}
+
+
+def _bank_scan(block):
+    xs = torch.stack([block(GRAPH_BLOCKS + i) for i in range(GRAPH_SCAN)])
+    return (xs, lambda w, xs: w.process_scan_i16(xs, pcm_out=True),
+            lambda w, x: w.process_i16_pcm(x)[0])
+
+
+def phase_graphs(bank_mod, receiver, modulate, mesh_mod, smi, freqs,
+                 cards=False):
+    """Every path's captured CUDA graphs against an eager twin
+    (capture=False) at the widths of the phases above: bit-equal through
+    live edits, a k-block scan equal to k single steps with one replay a
+    call, and eager against captured ms/block in one call.  With `cards`
+    only the mesh paths, over the machine's first MESH_D cards."""
+    print(f"phase 30{'c' if cards else ''}: captured CUDA graphs against "
+          f"eager twins ({GRAPH_BLOCKS} blocks, a retune, a Doppler step and "
+          f"a filter swap; a {GRAPH_SCAN}-block scan)", flush=True)
+    GRAPH_ROWS.clear()
+    n_ch, L, M = SERVE["n_channels"], SERVE["L"], SERVE["M"]
+    pcm = lambda w, x: w.process_i16_pcm(x)          # noqa: E731
+    cam_car = [(freqs[c] + o * PLL_BIN, True, None)
+               for c, o in CAM_SIGNAL.items()]
+    usb_car = [(freqs[c] + 1000.0, False, None) for c in SIGNAL]
+    fm_block = lambda b: make_block(b, L, freqs, SIGNAL, NO_PL, DEV)  # noqa
+    if not cards:
+        _graph_paths(bank_mod, receiver, modulate, smi, freqs, pcm, cam_car,
+                     usb_car, fm_block)
+    mesh = mesh_mod.make_channel_mesh(
+        MESH_D if cards else None, devices=None if cards else [DEV] * MESH_D)
+    where = f"{MESH_D} cards" if cards else f"{MESH_D} shards of the card"
+    for label, mode, block, (low, high) in (
+            ("FM+PL", "FM", fm_block, (-6000.0, 6000.0)),
+            ("CAM", "CAM", lambda b: make_am_block(b, L, FS, cam_car, DEV),
+             (-3000.0, 3000.0))):
+        cfg = bank_mod.make_bank_config(n_ch, mode, samprate=FS, L=L, M=M,
+                                        enable_pl=mode == "FM")
+        ch = list(CAM_SIGNAL) if mode == "CAM" else SIGNAL
+        _twins(f"{label} 4096 ch on {where}",
+               lambda c, cfg=cfg: bank_mod.ChannelBank(cfg, freqs, mesh=mesh,
+                                                       capture=c),
+               block, pcm, _bank_edits(freqs, ch, low, high), smi,
+               scan=_bank_scan(block), iters=10, busy=not cards)
+    print(f"  summary (ms/block; {smi}): path | eager | captured | busy "
+          "eager | busy captured | scan | capture s | captured wrapper MiB | "
+          "eager twin MiB", flush=True)
+    for row in GRAPH_ROWS:
+        print("  | " + " | ".join(f"{v:.3f}" if isinstance(v, float) else v
+                                  for v in row) + " |", flush=True)
+
+
+def _graph_paths(bank_mod, receiver, modulate, smi, freqs, pcm, cam_car,
+                 usb_car, fm_block):
+    """phase_graphs' single-device paths."""
+    n_ch, L, M = SERVE["n_channels"], SERVE["L"], SERVE["M"]
+    banks = (
+        ("FM+PL 4096 ch", "FM", fm_block, pcm, (-6000.0, 6000.0)),
+        ("FM+PL 4096 ch, process_active (64)", "FM", fm_block,
+         lambda w, x: w.process_active(x, max_active=64), (-6000.0, 6000.0)),
+        ("CAM 4096 ch", "CAM",
+         lambda b: make_am_block(b, L, FS, cam_car, DEV), pcm,
+         (-3000.0, 3000.0)),
+        ("AM 4096 ch", "AM",
+         lambda b: make_am_block(b, L, FS, cam_car, DEV), pcm,
+         (-3000.0, 3000.0)),
+        ("USB 4096 ch", "USB",
+         lambda b: make_am_block(b, L, FS, usb_car, DEV), pcm,
+         (200.0, 2800.0)),
+    )
+    for label, mode, block, step, (low, high) in banks:
+        cfg = bank_mod.make_bank_config(n_ch, mode, samprate=FS, L=L, M=M,
+                                        enable_pl=mode == "FM")
+        ch = list(CAM_SIGNAL) if mode in ("CAM", "AM") else SIGNAL
+        _twins(label, lambda c: bank_mod.ChannelBank(cfg, freqs, device=DEV,
+                                                     capture=c),
+               block, step, _bank_edits(freqs, ch, low, high), smi,
+               scan=None if step is not pcm else _bank_scan(block))
+    long_cfg = bank_mod.make_bank_config(LONG["n_channels"], "FM",
+                                         samprate=FS, L=LONG["L"],
+                                         M=LONG["M"], enable_pl=True)
+    long_f = bank_freqs(LONG["n_channels"])
+    long_block = lambda b: make_block(b, LONG["L"], long_f,  # noqa: E731
+                                      LONG_SIGNAL, (), DEV)
+    _twins("FM+PL 8192 ch, long blocks",
+           lambda c: bank_mod.ChannelBank(long_cfg, long_f, device=DEV,
+                                          capture=c),
+           long_block, pcm,
+           _bank_edits(long_f, LONG_SIGNAL, -6000.0, 6000.0), smi,
+           scan=_bank_scan(long_block), iters=GRAPH_LONG_ITERS)
+    of = _other_freqs()
+    isb_block = lambda b: make_am_block(  # noqa: E731
+        b, OTHER["L"], OTHER["samprate"],
+        [(of[9] + 1000.0, False, None), (of[130] - 1500.0, False, None)],
+        DEV)
+    isb_cfg = bank_mod.make_bank_config(
+        OTHER["n_channels"], "ISB", samprate=OTHER["samprate"],
+        L=OTHER["L"], M=OTHER["M"])
+    _twins("ISB 256 ch, 24.576 Msps",
+           lambda c: bank_mod.ChannelBank(isb_cfg, of, device=DEV,
+                                          capture=c),
+           isb_block, pcm, _bank_edits(of, (9, 130), -2800.0, 2800.0), smi,
+           scan=_bank_scan(isb_block))
+    for spec in MIXED_ROWS:
+        groups = _mixed_groups(spec)
+        fm_f, usb_f, cam_f = (f for _, f in groups)
+        fm = [(fm_f[c], False) for c in MIXED_FM_SIG]
+        car = ([(usb_f[c] + 1000.0, False, None) for c in MIXED_USB_SIG]
+               + [(cam_f[c] + o * PLL_BIN, True, None)
+                  for c, o in MIXED_CAM_SIG.items()])
+        u0, c0 = MIXED_USB_SIG[0], list(MIXED_CAM_SIG)[0]
+        edits = {GRAPH_EDITS[0]: ("retune", lambda w, u0=u0, f=usb_f:
+                                  w.tune(1, u0, f[u0] + 500.0)),
+                 GRAPH_EDITS[1]: ("Doppler step", lambda w, c0=c0:
+                                  w.set_doppler(2, c0, 30.0, 50.0)),
+                 GRAPH_EDITS[2]: ("FM set_filter(-6000, 6000)",
+                                  lambda w: w.set_filter(0, -6000.0,
+                                                         6000.0))}
+        _twins("MultiBank " + " + ".join(f"{m}:{n}" for m, n in spec),
+               lambda c, g=groups: bank_mod.MultiBank(
+                   g, samprate=FS, L=L, M=M, device=DEV, capture=c),
+               lambda b, fm=fm, car=car: make_iq(b, L, FS, SEED + 11, fm=fm,
+                                                 carriers=car),
+               pcm, edits, smi)
+    fs, rx_if = 192000, 48000.0
+    rx_filters = {"FM": (-7000.0, 7000.0), "AM": (-4000.0, 4000.0),
+                  "USB": (200.0, 2800.0), "LSB": (-2800.0, -200.0),
+                  "CAM": (-4000.0, 4000.0)}
+    for mode, (low, high) in rx_filters.items():
+        cfg = receiver.make_receiver_config(mode, samprate=fs)
+        src = _rx_source(mode, modulate, rx_if, fs, cfg.L)
+        blocks = [src(b) for b in range(GRAPH_BLOCKS + GRAPH_SCAN)]
+
+        def make(c, cfg=cfg):
+            rx = receiver.Receiver(cfg, device=DEV, capture=c)
+            rx.set_freq(rx_if)
+            return rx
+
+        x16 = torch.clamp(torch.view_as_real(torch.stack(
+            blocks[GRAPH_BLOCKS:])) * 32767.0, -32768, 32767).to(torch.int16)
+        _twins(f"receiver {mode}, 192 kHz", make,
+               lambda b, blocks=blocks: blocks[b],
+               lambda w, x: w.process(x),
+               {GRAPH_EDITS[0]: ("retune", lambda w: w.set_freq(rx_if
+                                                                 + 300.0)),
+                GRAPH_EDITS[1]: ("Doppler step",
+                                 lambda w: w.set_doppler(40.0, 0.0)),
+                GRAPH_EDITS[2]: (f"set_filter({low:g}, {high:g})",
+                                 lambda w, lo=low, hi=high:
+                                 w.set_filter(lo, hi))},
+               smi, scan=(x16, lambda w, xs: w.process_offline(xs),
+                          lambda w, x: w.process(
+                              bank_mod.iq_from_i16(x))[0]))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -2929,6 +3229,11 @@ def main():
         torch.cuda.empty_cache()
         phase_dryrun(dryrun)
         phase_tools(stage_profile, serve_soak, ffill, smi)
+        torch.cuda.empty_cache()
+        phase_graphs(bank_mod, receiver, modulate, mesh_mod, smi, freqs)
+        if torch.cuda.device_count() >= MESH_D:
+            phase_graphs(bank_mod, receiver, modulate, mesh_mod, smi, freqs,
+                         cards=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

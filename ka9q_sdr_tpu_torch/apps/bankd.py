@@ -27,10 +27,10 @@ What differs from the JAX daemon:
 - --mesh D takes the first D CUDA cards (fewer where the machine has
   fewer, as the JAX daemon takes ``jax.devices()[:D]``; with --cpu, D CPU
   shards) and prints the mesh it got; one process drives them all
-  (parallel.mesh).  The mesh is for capacity only: one host thread queues
-  each shard's step in turn, so a sharded block runs several times slower
-  than the unsharded bank on one card, and --shard-fft was no faster than
-  the replicated FFT on any geometry measured (PERF.md).
+  (parallel.mesh).  Each shard replays its captured step: on 4 H100s a
+  4096-channel FM block took 2.21 ms against 3.36 on one card, while
+  --shard-fft (whose step stays eager) was slower than the replicated FFT
+  on every geometry measured (PERF.md).
 - --profile writes a torch.profiler trace.
 - KA9Q_BANKD_TIMING=1 prints the loop's split per block on every input path
   (read, poll, step, copy, wait, emit, status), every 250 blocks and at the
@@ -1023,12 +1023,14 @@ def _assembler_source(target: str, L: int):
     return next_block
 
 
-def _warm_up(d, L: int) -> None:
-    """One block of zeros before joining the stream: it builds the kernels
-    the bank's modes launch (nvcc at first use) and the FFT plans, so the
+def _warm_up(d, block: np.ndarray, step=None) -> None:
+    """One block of zeros, in the form the stream delivers them, before
+    joining it: it builds the kernels the bank's modes launch (nvcc at
+    first use), the FFT plans and, on a card, the captured graph of the
+    step the stream replays (`step`, by default ``process_block``), so the
     first live packets are not dropped meanwhile.  Its output is
     discarded, not emitted."""
-    d.process_block(np.zeros(L, np.complex64))
+    (step or d.process_block)(block)
     d.discard_pending()
     d.blocks_done = 0
     d.timing = Timing()
@@ -1053,17 +1055,18 @@ def run_multibank(args, groups) -> int:
         _serve(d, args, _file_source(args.iq_file, L), d.process_block,
                timing)
     elif args.input:
-        _warm_up(d, L)
         from .. import native
 
         if native.NATIVE_AVAILABLE and not args.no_native:
             # native engine: its packed (L, 2) float32 blocks go straight
             # into MultiBank.process
+            _warm_up(d, np.zeros((L, 2), np.float32))
             rx = native.RTPReceiver(*_native_target(args.input), block_len=L)
             _serve(d, args, lambda: rx.get_block(1000), d.process_block,
                    timing)
             rx.close()
         else:
+            _warm_up(d, np.zeros(L, np.complex64))
             _serve(d, args, _assembler_source(args.input, L),
                    d.process_block, timing)
     else:
@@ -1120,9 +1123,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", type=int, default=0, metavar="D",
                    help="shard the channel axis over a D-device mesh "
                         "(one logical bank spanning devices; channels are "
-                        "padded to a device multiple).  For capacity only: "
-                        "one thread queues the shards in turn, so a block "
-                        "runs several times slower than on one card")
+                        "padded to a device multiple)")
     p.add_argument("--shard-fft", action="store_true",
                    help="with --mesh: distribute the wideband master FFT "
                         "itself (the >100 Msps sequence-scaling path); "
@@ -1194,7 +1195,6 @@ def _run_bank(d: BankDaemon, args) -> int:
         _serve(d, args, _file_source(args.iq_file, L), d.process_block,
                timing)
     elif args.input:
-        _warm_up(d, L)
         from .. import native
 
         if native.NATIVE_AVAILABLE and not args.no_native:
@@ -1209,10 +1209,13 @@ def _run_bank(d: BankDaemon, args) -> int:
                 # mesh-padding rows never compete for a slot
                 nv = d.n_real if d.n_real != d.cfg.n_channels else None
 
+                def active(block):
+                    return d.bank.process_active(block, args.max_active,
+                                                 n_valid=nv)
+
                 def step(block):
                     t0 = time.perf_counter()
-                    pcm, idx, diag = d.bank.process_active(
-                        block, args.max_active, n_valid=nv)
+                    pcm, idx, diag = active(block)
                     t0 = d.timing.add("step", t0)
                     # every leaf the emit path reads, status diag included
                     pending.append(HostCopy([pcm, idx, diag.get("snr"),
@@ -1222,13 +1225,15 @@ def _run_bank(d: BankDaemon, args) -> int:
                         d.emit_active(pending.popleft(), L_dec)
                     d.blocks_done += 1
             else:
-                step = d.process_block
+                active, step = None, d.process_block
+            _warm_up(d, np.zeros((L, 2), np.int16), active)
             _serve(d, args, lambda: rx.get_block_i16(1000), step, timing)
             if args.max_active:
                 while pending:
                     d.emit_active(pending.popleft(), L_dec)
             rx.close()
         else:
+            _warm_up(d, np.zeros(L, np.complex64))
             _serve(d, args, _assembler_source(args.input, L),
                    d.process_block, timing)
     else:

@@ -24,6 +24,9 @@ What differs from the JAX package, by design:
   group 0's); on a mesh, one per device.
 - On a mesh (``parallel.mesh``) the state is a tuple of per-device
   BankStates and live control edits the shard that owns the channel.
+- The host wrappers replay a captured CUDA graph of each step where the
+  JAX wrappers jit it (``utils.graphs``); their state is static, so live
+  control writes into it.
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ from ..ops.fftfilt import (
     slave_bin_indices,
 )
 from ..ops.nco import OscState, osc_block, osc_init, set_osc, split_double
+from ..utils.graphs import (StepGraphs, clone_tree, scan, static_copy,
+                            write_state)
 from ..utils.modes import DEFAULT_MODES, ModeDef
 from .demod_am import AMConfig, am_demod, am_init
 from .demod_fm import FMConfig, fm_demod, fm_init
@@ -652,6 +657,11 @@ def _edit_row(states, n_per_shard: int | None, channel: int, fn):
     return tuple(states)
 
 
+def _split(res):
+    """(state, *outputs) -> (state, outputs), the StepGraphs step form."""
+    return res[0], res[1:]
+
+
 class ChannelBank:
     """Host wrapper: config + state + per-block calls, on one named device
     or sharded over a mesh.
@@ -662,61 +672,115 @@ class ChannelBank:
     multiple of its size (``parallel.mesh.pad_channels`` pads a frequency
     list), and the state is then a tuple of per-device BankStates.
     shard_fft also distributes the master FFT (``parallel.dfft``).  Without
-    a mesh the caller names the device."""
+    a mesh the caller names the device.
+
+    Each per-block call is the JAX wrapper's jitted step: on a card, one
+    captured CUDA graph per variant (``utils.graphs``; on a mesh one per
+    shard, but the ``shard_fft`` step stays eager), replayed once per call;
+    ``process_scan_i16`` replays one graph of k steps.  `capture=False`
+    runs the same steps eagerly (the twin the graphs are held against).
+    What a call returns belongs to the caller.  The live state is static:
+    live edits write into it, ``state`` reads a copy of it (the same copy
+    until the next block or edit) and assigning ``state`` writes into it."""
 
     def __init__(self, cfg: BankConfig, freqs_hz: Sequence[float], *,
-                 device=None, mesh=None, shard_fft: bool = False):
+                 device=None, mesh=None, shard_fft: bool = False,
+                 capture: bool = True):
         if (device is None) == (mesh is None):
             raise ValueError("ChannelBank takes a device or a mesh")
         self.freqs = list(freqs_hz)
         self.mesh = mesh
         self.shard_fft = shard_fft
+        self._snap = None
         if mesh is None:
             self.device = torch.device(device)
             self.cfg = cfg.to(self.device)
-            self.state = bank_init(cfg, freqs_hz, device=self.device)
+            self._state = static_copy(bank_init(cfg, freqs_hz,
+                                                device=self.device))
+            self._graphs = StepGraphs(self.device, capture)
             self._per_shard = None
         else:
             from ..parallel.mesh import ShardedBankStep, shard_bank_state
 
             self.device = mesh.devices[0]
             self.cfg = cfg
-            self._sharded = ShardedBankStep(cfg, mesh, shard_fft)
+            self._sharded = ShardedBankStep(cfg, mesh, shard_fft, capture)
             self._per_shard = self._sharded.b
-            self.state = shard_bank_state(
-                mesh, bank_init(cfg, freqs_hz, device="cpu"))
+            # each shard its own tensors (shard_bank_state may hand out
+            # views and one replicated tensor for every shard)
+            self._state = tuple(static_copy(s) for s in shard_bank_state(
+                mesh, bank_init(cfg, freqs_hz, device="cpu")))
+
+    @property
+    def state(self):
+        """A copy of the state as of the last block or edit."""
+        if self._snap is None:
+            self._snap = clone_tree(self._state)
+        return self._snap
+
+    @property
+    def graphs(self) -> list:
+        """The compiled steps (one ``StepGraphs`` per device), for their
+        replay and capture counts."""
+        return [self._graphs] if self.mesh is None else self._sharded.graphs
+
+    @state.setter
+    def state(self, new) -> None:
+        self._write(new)
+
+    def _write(self, new) -> None:
+        write_state(self._state, new)
+        self._snap = None
 
     def _put(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
-    def _run(self, x, ingest: str, pcm_out: bool):
+    def _run(self, key, fn, x, warmup=None):
+        """One call of the step variant `key` over the static state."""
+        self._snap = None
+        return self._graphs.run(key, fn, self._state, (x,), warmup)
+
+    def _block(self, x, ingest: str, pcm_out: bool):
         if self.mesh is not None:
-            self.state, audio, diag = self._sharded(self.state, x, ingest,
-                                                    pcm_out)
-        elif ingest == "i16":
-            self.state, audio, diag = bank_step_i16(self.cfg, self.state, x,
-                                                    pcm_out=pcm_out)
-        else:
-            self.state, audio, diag = bank_step(self.cfg, self.state, x)
-        return audio, diag
+            self._snap = None
+            return self._sharded.step(self._state, x, ingest, pcm_out)
+        cfg = self.cfg
+        if ingest == "i16":
+            return self._run(("i16", pcm_out), lambda s, x: _split(
+                bank_step_i16(cfg, s, x, pcm_out=pcm_out)), x)
+        return self._run(("f32",), lambda s, x: _split(bank_step(cfg, s, x)),
+                         x)
 
     def process(self, iq_block):
         """iq_block: (L,) complex (numpy or tensor).  Returns (audio, diag)."""
-        return self._run(self._put(iq_block, torch.complex64), "f32", False)
+        return self._block(self._put(iq_block, torch.complex64), "f32", False)
 
     def process_i16(self, x_i16):
         """Raw (L, 2) int16 ingest.  Returns (audio, diag)."""
-        return self._run(self._put(x_i16, torch.int16), "i16", False)
+        return self._block(self._put(x_i16, torch.int16), "i16", False)
 
     def process_i16_pcm(self, x_i16):
         """int16 in, int16 PCM (B, L_dec) out.  Returns (pcm, diag)."""
-        return self._run(self._put(x_i16, torch.int16), "i16", True)
+        return self._block(self._put(x_i16, torch.int16), "i16", True)
 
     def process_scan_i16(self, x_i16_blocks, pcm_out: bool = False):
-        """Demodulate (k, L, 2) int16 blocks in order.  Returns audio
-        (k, B, L_dec), int16 when pcm_out."""
+        """Demodulate (k, L, 2) int16 blocks in order, as one step of k
+        blocks (the JAX ``bank_scan_packed_i16``; on a card one graph
+        replay per call).  Returns audio (k, B, L_dec), int16 when
+        pcm_out."""
         blocks = self._put(x_i16_blocks, torch.int16)
-        return torch.stack([self._run(x, "i16", pcm_out)[0] for x in blocks])
+        if self.mesh is not None:
+            self._snap = None
+            return self._sharded.scan(self._state, blocks, pcm_out)
+        cfg = self.cfg
+
+        def step(s, x):
+            s, audio, _ = bank_step_i16(cfg, s, x, pcm_out=pcm_out)
+            return s, audio
+
+        return self._run(("scan", pcm_out),
+                         lambda s, xs: scan(step, s, xs), blocks,
+                         warmup=lambda s, xs: step(s, xs[0]))
 
     def process_active(self, x_i16, max_active: int = 64,
                        n_valid: int | None = None):
@@ -725,48 +789,51 @@ class ChannelBank:
         mesh-padding rows out of the compaction."""
         x = self._put(x_i16, torch.int16)
         if self.mesh is not None:
-            self.state, pcm, idx, diag = self._sharded.active(
-                self.state, x, max_active, n_valid)
-        else:
-            self.state, pcm, idx, diag = bank_step_active(
-                self.cfg, self.state, x, max_active, n_valid)
-        return pcm, idx, diag
+            self._snap = None
+            return self._sharded.active(self._state, x, max_active, n_valid)
+        cfg = self.cfg
+        return self._run(("active", max_active, n_valid),
+                         lambda s, x: _split(bank_step_active(
+                             cfg, s, x, max_active, n_valid)), x)
 
     def tune(self, channel: int, freq_hz: float) -> None:
         """Retune one channel without phase discontinuity (radio.c:204-242
         set_freq at bank scale; see bank_tune)."""
         # device state first: if it rejects the frequency, the host list
         # must not desync from it
-        self.state = _edit_row(
-            self.state, self._per_shard, channel,
-            lambda s, i, _: bank_tune(self.cfg, s, i, freq_hz))
+        self._write(_edit_row(
+            self._state, self._per_shard, channel,
+            lambda s, i, _: bank_tune(self.cfg, s, i, freq_hz)))
         self.freqs[channel] = freq_hz
 
     def set_filter(self, low: float | None = None, high: float | None = None,
                    kaiser_beta: float | None = None) -> None:
         """Hot-swap the bank's shared frequency response
-        (swap_filter_response)."""
+        (swap_filter_response).  The response is static state; the steps
+        are captured again only where the FM audio gain changed with it."""
         edges = dict(low=low, high=high, kaiser_beta=kaiser_beta)
         if self.mesh is None:
-            self.cfg, self.state = swap_filter_response(self.cfg, self.state,
-                                                        **edges)
+            cfg, state = swap_filter_response(self.cfg, self._state, **edges)
+            if cfg.demod_cfg is not self.cfg.demod_cfg:
+                self._graphs.clear()
+            self.cfg = cfg
+            self._write(state)
             return
-        from ..parallel.mesh import ShardedBankStep
-
-        self.cfg, self.state = _swap_filter_shards(self.cfg, self.state,
-                                                   **edges)
-        self._sharded = ShardedBankStep(self.cfg, self.mesh, self.shard_fft)
+        cfg, states = _swap_filter_shards(self.cfg, self._state, **edges)
+        self._sharded.set_config(cfg)
+        self.cfg = cfg
+        self._write(states)
 
     def set_doppler(self, channel: int, doppler_hz: float,
                     rate_hz_s: float) -> None:
         """Doppler-steer one channel (set_doppler, radio.c:180-198): offset
         and sweep rate on top of its base frequency (self.freqs, which
         retunes keep current)."""
-        self.state = _edit_row(
-            self.state, self._per_shard, channel,
+        self._write(_edit_row(
+            self._state, self._per_shard, channel,
             lambda s, i, _: bank_set_doppler(
                 self.cfg, s, i, self.freqs[channel], doppler_hz=doppler_hz,
-                rate_hz_s=rate_hz_s))
+                rate_hz_s=rate_hz_s)))
 
     def steer_adapter(self, channel: int):
         """A per-channel facade with the Receiver steering interface
@@ -819,14 +886,21 @@ class MultiBank:
     make_bank_config.  On one named device, or with `mesh` every group's
     channel axis sharded over it: each group is padded to a multiple of
     the mesh size (``group_real[g]`` rows of group g's audio are real, the
-    rest padding), the wideband block and master FFT replicated."""
+    rest padding), the wideband block and master FFT replicated.
+
+    Each block is one step of every group (``multibank_step``): on a card
+    one captured CUDA graph per variant (on a mesh one per device), as
+    ``ChannelBank``; `capture=False` runs it eagerly.  ``states`` reads a
+    copy of the static state and assigning it writes into it."""
 
     def __init__(self, groups: Sequence[tuple[str, Sequence[float]]],
                  samprate: float = 24.576e6, L: int = 491520,
-                 M: int = 557057, *, device=None, mesh=None, **kw):
+                 M: int = 557057, *, device=None, mesh=None,
+                 capture: bool = True, **kw):
         if (device is None) == (mesh is None):
             raise ValueError("MultiBank takes a device or a mesh")
         self.mesh = mesh
+        self._snap = None
         self.group_real = [len(freqs) for _, freqs in groups]
         if mesh is not None:
             from ..parallel.mesh import pad_channels
@@ -847,11 +921,12 @@ class MultiBank:
         if mesh is None:
             self.device = torch.device(device)
             self.cfgs = [c.to(self.device) for c in cfgs]
-            states = [bank_init(c, freqs, device=self.device)
+            states = [static_copy(bank_init(c, freqs, device=self.device))
                       for c, freqs in zip(cfgs, self.group_freqs)]
-            self.states = [s._replace(overlap=states[0].overlap)
-                           for s in states]
+            self._states = [s._replace(overlap=states[0].overlap)
+                            for s in states]
             self._per_shard = [None] * len(cfgs)
+            self._graphs = [StepGraphs(self.device, capture)]
         else:
             from ..parallel.mesh import shard_bank_state
 
@@ -859,18 +934,40 @@ class MultiBank:
             self.cfgs = cfgs
             self._per_shard = [c.n_channels // mesh.size for c in cfgs]
             self._build_shard_cfgs()
-            states = [shard_bank_state(mesh, bank_init(c, f, device="cpu"))
+            shards = [shard_bank_state(mesh, bank_init(c, f, device="cpu"))
                       for c, f in zip(cfgs, self.group_freqs)]
-            # one overlap per device, shared by every group
-            self.states = [tuple(s._replace(overlap=states[0][d].overlap)
-                                 for d, s in enumerate(st))
-                           for st in states]
+            # each device its own tensors, and one overlap per device
+            # shared by every group
+            per_dev = [[static_copy(st[d]) for st in shards]
+                       for d in range(mesh.size)]
+            per_dev = [[s._replace(overlap=ss[0].overlap) for s in ss]
+                       for ss in per_dev]
+            self._states = [tuple(ss[g] for ss in per_dev)
+                            for g in range(len(cfgs))]
+            self._graphs = [StepGraphs(dev, capture) for dev in mesh.devices]
         # each group's freshly initialised demod subtree (per shard on a
-        # mesh), for init_channel's per-row respawn; no state tensor is ever
-        # written in place, so holding these references keeps them as built
+        # mesh), for init_channel's per-row respawn: a copy, since the
+        # state itself is written in place every block
         self._fresh_demod = [
-            s.demod if mesh is None else [sh.demod for sh in s]
-            for s in self.states]
+            static_copy(s.demod) if mesh is None
+            else [static_copy(sh.demod) for sh in s] for s in self._states]
+
+    @property
+    def states(self) -> list:
+        """A copy of every group's state as of the last block or edit."""
+        if self._snap is None:
+            self._snap = clone_tree(self._states)
+        return self._snap
+
+    @states.setter
+    def states(self, new) -> None:
+        write_state(self._states, list(new))
+        self._snap = None
+
+    @property
+    def graphs(self) -> list:
+        """The compiled steps (one ``StepGraphs`` per device)."""
+        return self._graphs
 
     def _build_shard_cfgs(self) -> None:
         from ..parallel.mesh import shard_configs
@@ -880,20 +977,37 @@ class MultiBank:
     def _put(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
-    def _step(self, x: torch.Tensor) -> list:
+    def _step(self, x: torch.Tensor, ingest: str, pcm_out: bool) -> list:
+        """One block of every group: the raw input `x` (ingest "f32": (L,)
+        complex or (L, 2) float I/Q; "i16": (L, 2) int16) through one
+        master FFT and each group's step, as the variant (ingest,
+        pcm_out)."""
+        self._snap = None
+
+        def step(cfgs):
+            def fn(states, x):
+                blk = iq_from_i16(x) if ingest == "i16" else _complex_block(x)
+                new, outs = multibank_step(cfgs, states, blk)
+                if pcm_out:
+                    outs = [(_pcm(a), d) for a, d in outs]
+                return new, outs
+            return fn
+
+        key = (ingest, pcm_out)
         if self.mesh is None:
-            self.states, outs = multibank_step(self.cfgs, self.states, x)
-            return outs
+            return self._graphs[0].run(key, step(self.cfgs), self._states,
+                                       (x,))
         from ..parallel.mesh import gather_shards
 
-        per = [multibank_step([c[d] for c in self._shard_cfgs],
-                              [st[d] for st in self.states], x.to(dev))
-               for d, dev in enumerate(self.mesh.devices)]
-        G = len(self.states)
-        self.states = [tuple(p[0][g] for p in per) for g in range(G)]
+        # the block on every device before any step is queued (as
+        # ShardedBankStep._run)
+        xs = [x.to(dev) for dev in self.mesh.devices]
+        per = [g.run(key, step([c[d] for c in self._shard_cfgs]),
+                     [st[d] for st in self._states], (xs[d],))
+               for d, g in enumerate(self._graphs)]
         outs = []
-        for g in range(G):
-            shards = [p[1][g] for p in per]
+        for g in range(len(self._states)):
+            shards = [p[g] for p in per]
             outs.append((
                 gather_shards([a for a, _ in shards], self.device),
                 {k: gather_shards([dg[k] for _, dg in shards], self.device)
@@ -903,21 +1017,22 @@ class MultiBank:
     def process(self, iq_block) -> list:
         """iq_block: (L,) complex or (L, 2) float packed I/Q (numpy or
         tensor).  Returns [(audio, diag), ...] per group."""
-        x = torch.as_tensor(iq_block, device=self.device)
-        return self._step(_complex_block(x))
+        return self._step(torch.as_tensor(iq_block, device=self.device),
+                          "f32", False)
 
     def process_i16(self, x_i16) -> list:
         """Raw (L, 2) int16 ingest, scaled on the device (radio.c:38).
         Returns [(audio, diag), ...] per group."""
-        return self._step(iq_from_i16(self._put(x_i16, torch.int16)))
+        return self._step(self._put(x_i16, torch.int16), "i16", False)
 
     def process_i16_pcm(self, x_i16) -> list:
         """int16 in, int16 PCM out.  Returns [(pcm, diag), ...] per group."""
-        return [(_pcm(audio), diag) for audio, diag in self.process_i16(x_i16)]
+        return self._step(self._put(x_i16, torch.int16), "i16", True)
 
     def _edit(self, group: int, idx: int, fn) -> None:
-        self.states[group] = _edit_row(self.states[group],
-                                       self._per_shard[group], idx, fn)
+        write_state(self._states[group], _edit_row(
+            self._states[group], self._per_shard[group], idx, fn))
+        self._snap = None
 
     def tune(self, group: int, idx: int, freq_hz: float) -> None:
         """Retune one channel of one group, phase-continuously
@@ -938,7 +1053,7 @@ class MultiBank:
         """(Re)commission one slot of one group: fresh demod state for the
         row (the reference's respawned demod thread on a mode change,
         radio.c:322-374), a phase-continuous retune, and a cleared Doppler
-        sweep."""
+        sweep.  State edits only: the steps keep their graphs."""
         fresh = self._fresh_demod[group]
         n = self._per_shard[group] or len(self.group_freqs[group])
         self._edit(group, idx, lambda s, i, d: bank_reset_demod_row(
@@ -950,15 +1065,24 @@ class MultiBank:
                    high: float | None = None,
                    kaiser_beta: float | None = None) -> None:
         """Hot-swap ONE group's shared frequency response; the other
-        groups' responses are untouched (swap_filter_response)."""
+        groups' responses are untouched (swap_filter_response).  The step
+        is captured again only where the FM audio gain changed."""
         edges = dict(low=low, high=high, kaiser_beta=kaiser_beta)
+        old = self.cfgs[group]
         if self.mesh is None:
-            self.cfgs[group], self.states[group] = swap_filter_response(
-                self.cfgs[group], self.states[group], **edges)
-            return
-        self.cfgs[group], self.states[group] = _swap_filter_shards(
-            self.cfgs[group], self.states[group], **edges)
-        self._build_shard_cfgs()
+            cfg, state = swap_filter_response(old, self._states[group],
+                                              **edges)
+        else:
+            cfg, state = _swap_filter_shards(old, self._states[group],
+                                             **edges)
+        self.cfgs[group] = cfg
+        write_state(self._states[group], state)
+        self._snap = None
+        if self.mesh is not None:
+            self._build_shard_cfgs()
+        if cfg.demod_cfg is not old.demod_cfg:
+            for g in self._graphs:
+                g.clear()
 
 
 def make_bank(n_channels: int, mode: str = "FM",

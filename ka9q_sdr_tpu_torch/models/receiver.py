@@ -10,10 +10,12 @@ blocksize rebuilds).
 
 What differs from the JAX package, by design:
 
-- No jit and no real-dtype packing boundary: state keeps complex tensors,
-  and the filter response and passband mask are device tensors that a live
-  ``set_filter`` replaces.
-- ``receiver_scan`` is a loop over blocks (the JAX package's ``lax.scan``).
+- No real-dtype packing boundary: state keeps complex tensors, and the
+  filter response and passband mask are device tensors that a live
+  ``set_filter`` overwrites.  ``Receiver`` replays a captured CUDA graph
+  where JAX jits (``utils.graphs``).
+- ``receiver_scan`` is a loop over blocks (the JAX package's ``lax.scan``),
+  which ``Receiver.process_offline`` captures as one graph.
 - ``receiver_step`` also runs batched over leading axes (``receiver_init(cfg,
   (B,))``); the JAX function needs ``jax.vmap`` for that, because its
   ``compute_n0`` does not broadcast.
@@ -37,6 +39,8 @@ from ..ops.fftfilt import (
     slave_execute,
 )
 from ..ops.nco import OscState, osc_block, osc_init, set_osc
+from ..utils.graphs import (StepGraphs, clone_tree, scan, static_copy,
+                            write_state)
 from ..utils.modes import DEFAULT_MODES, ModeDef
 from .bank import bank_demod, iq_from_i16
 from .demod_am import AMConfig, am_init
@@ -279,16 +283,16 @@ def receiver_scan(cfg: ReceiverConfig, state: ReceiverState, blocks,
                   response: torch.Tensor | None = None,
                   n0_mask: torch.Tensor | None = None):
     """Offline batch path: the receiver over many blocks in order (the
-    JAX package's lax.scan, as a loop; replaying a recording through
-    `radio` faster than real time).
+    JAX package's lax.scan, ``utils.graphs.scan``; replaying a recording
+    through `radio` faster than real time).
 
     blocks: (nblocks, L) complex.  Returns (final_state, audio) with audio
     stacked (nblocks, ...).  Diagnostics are dropped."""
-    outs = []
-    for blk in blocks:
-        state, audio, _ = receiver_step(cfg, state, blk, response, n0_mask)
-        outs.append(audio)
-    return state, torch.stack(outs)
+    def step(st, blk):
+        st, audio, _ = receiver_step(cfg, st, blk, response, n0_mask)
+        return st, audio
+
+    return scan(step, state, blocks)
 
 
 def scale_iq(raw: torch.Tensor, bits: int = 16) -> torch.Tensor:
@@ -322,42 +326,102 @@ class Receiver:
     """Host wrapper: config, state on one named device, the per-block call
     and the control-plane tuning functions of radio.c.
 
-    Every edit produces a new state or config between blocks; a "no
-    recompile" swap (filter response, passband mask) is a new device
-    tensor."""
+    ``process`` is the JAX wrapper's jitted step and ``process_offline`` its
+    jitted scan: on a card each is a captured CUDA graph (``utils.graphs``;
+    the scan one graph of k blocks), replayed once per call;
+    `capture=False` runs them eagerly.  What a call returns belongs to the
+    caller.  The state, the filter response and the passband mask are
+    static tensors that the control plane writes into; ``state`` reads a
+    copy of the state (the same copy until the next block or edit) and
+    assigning it writes into it.  A mode, option or blocksize change
+    captures the steps again, as JAX re-jits; so does a filter edit that
+    changes the FM audio gain."""
 
-    def __init__(self, cfg: ReceiverConfig, *, device):
+    def __init__(self, cfg: ReceiverConfig, *, device, capture: bool = True):
         self.device = torch.device(device)
-        self.cfg = cfg.to(self.device)
-        self.state = receiver_init(cfg, device=self.device)
+        self._graphs = StepGraphs(self.device, capture)
+        self._snap = None
         self.sdr = SDRStatus(samprate=cfg.samprate)
         self.tune_freq = 0.0
         self.second_lo = 0.0   # LO2 Hz, mirrored for status emission
+        self._reset(cfg, receiver_init(cfg, device=self.device))
+
+    def _reset(self, cfg: ReceiverConfig, state: ReceiverState) -> None:
+        """A new configuration and static state (new shapes or demod
+        state): drop the captured steps."""
+        self._graphs.clear()
+        self.cfg = cfg.to(self.device)
+        self._state = static_copy(state)
+        self._snap = None
+        self._resp = self._n0_mask = None
         self._load_filter_args()
 
+    @property
+    def state(self) -> ReceiverState:
+        """A copy of the state as of the last block or edit."""
+        if self._snap is None:
+            self._snap = clone_tree(self._state)
+        return self._snap
+
+    @state.setter
+    def state(self, new: ReceiverState) -> None:
+        self._write(new)
+
+    @property
+    def graphs(self) -> list:
+        """The compiled steps (``[StepGraphs]``), for their replay and
+        capture counts."""
+        return [self._graphs]
+
+    def _write(self, new: ReceiverState) -> None:
+        write_state(self._state, new)
+        self._snap = None
+
     def _load_filter_args(self) -> None:
-        """The current response and passband mask as device tensors."""
-        self._resp = torch.as_tensor(self.cfg.response,
-                                     dtype=torch.complex64, device=self.device)
-        self._n0_mask = torch.as_tensor(self.cfg.n0_mask, device=self.device)
+        """The current response and passband mask, written into their
+        static device tensors (allocated at a reset)."""
+        resp = torch.as_tensor(self.cfg.response, dtype=torch.complex64)
+        mask = torch.as_tensor(self.cfg.n0_mask)
+        if self._resp is None:
+            self._resp = resp.to(self.device)
+            self._n0_mask = mask.to(self.device)
+        else:
+            self._resp.copy_(resp)
+            self._n0_mask.copy_(mask)
+
+    def _step_fn(self):
+        cfg, resp, mask = self.cfg, self._resp, self._n0_mask
+
+        def step(st, x):
+            st, audio, diag = receiver_step(cfg, st, x, resp, mask)
+            return st, (audio, diag)
+
+        return step
 
     def process(self, iq_block):
         """Run one L-sample complex block (numpy or tensor); returns
         (audio, diag) as tensors on the receiver's device."""
         x = torch.as_tensor(iq_block, dtype=torch.complex64,
                             device=self.device)
-        self.state, audio, diag = receiver_step(
-            self.cfg, self.state, x, self._resp, self._n0_mask)
-        return audio, diag
+        self._snap = None
+        return self._graphs.run("block", self._step_fn(), self._state, (x,))
 
     def process_offline(self, blocks_i16):
         """Demodulate (nblocks, L, 2) int16 I/Q in order (receiver_scan),
-        scaled on the device as the JAX package's packed scan does.
-        Returns the audio stacked (nblocks, ...) on the receiver's device."""
+        scaled on the device as the JAX package's packed scan does: one
+        step of k blocks (on a card one graph replay).  Returns the audio
+        stacked (nblocks, ...) on the receiver's device."""
         x = torch.as_tensor(blocks_i16, dtype=torch.int16, device=self.device)
-        self.state, audio = receiver_scan(
-            self.cfg, self.state, iq_from_i16(x), self._resp, self._n0_mask)
-        return audio
+        step = self._step_fn()
+
+        def one(st, x16):
+            st, (audio, _) = step(st, iq_from_i16(x16))
+            return st, audio
+
+        self._snap = None
+        return self._graphs.run("scan", lambda st, xs: scan(one, st, xs),
+                                self._state, (x,),
+                                warmup=lambda st, xs: one(st, xs[0]))
 
     # ---- control plane (radio.c:200-316) ----
 
@@ -374,13 +438,13 @@ class Receiver:
         """set_second_LO (radio.c:290-301); phase is preserved."""
         self.second_lo = float(second_lo)
         f = 0.0 if second_lo == 0 else second_lo / self.cfg.samprate
-        self.state = self.state._replace(lo2=set_osc(self.state.lo2, f))
+        self._write(self._state._replace(lo2=set_osc(self._state.lo2, f)))
 
     def set_doppler(self, freq: float, rate: float) -> None:
         """set_doppler (radio.c:180-184)."""
         fs = self.cfg.samprate
-        self.state = self.state._replace(
-            doppler=set_osc(self.state.doppler, -freq / fs, -rate / (fs * fs)))
+        self._write(self._state._replace(doppler=set_osc(
+            self._state.doppler, -freq / fs, -rate / (fs * fs))))
 
     def set_freq(self, f: float, new_lo2: float = np.nan) -> Optional[float]:
         """set_freq (radio.c:204-242).  Tuning model: RF = LO1 - LO2.
@@ -411,15 +475,16 @@ class Receiver:
                 self.set_second_lo(new_lo2)
 
     def set_gain_factor(self, g: float) -> None:
-        self.state = self.state._replace(
-            gain_factor=torch.full_like(self.state.gain_factor, g))
+        self._write(self._state._replace(
+            gain_factor=torch.full_like(self._state.gain_factor, g)))
 
     def set_filter(self, low: float | None = None, high: float | None = None,
                    kaiser_beta: float | None = None) -> None:
         """Live filter edit (set_filter, filter.c:500-546): redesign the
-        slave response and the n0 passband mask and swap them in as new
-        device tensors.  The FM audio gain is recomputed from the new edges
-        (fm.c:85-86 derives it from the current bandwidth every block)."""
+        slave response and the n0 passband mask and write them into their
+        static device tensors.  The FM audio gain is recomputed from the
+        new edges (fm.c:85-86 derives it from the current bandwidth every
+        block), and the steps are captured again with it."""
         mode = self.cfg.mode
         low = mode.low if low is None else float(low)
         high = mode.high if high is None else float(high)
@@ -443,6 +508,8 @@ class Receiver:
             demod_cfg = demod_cfg._replace(
                 gain=float(headroom * (1.0 / np.pi) * self.cfg.dsamprate
                            / abs(low - high)))
+        if demod_cfg is not self.cfg.demod_cfg:
+            self._graphs.clear()
         self.cfg = self.cfg._replace(
             mode=dc_replace(mode, low=low, high=high),
             response=response,
@@ -458,10 +525,12 @@ class Receiver:
         No-op for AM/FM."""
         if self.cfg.mode.demod != "LINEAR":
             return
-        new_shift = set_osc(self.state.demod.shift,
+        new_shift = set_osc(self._state.demod.shift,
                             shift_hz / self.cfg.dsamprate)
-        self.state = self.state._replace(
-            demod=self.state.demod._replace(shift=new_shift))
+        self._write(self._state._replace(
+            demod=self._state.demod._replace(shift=new_shift)))
+        # the step reads the shift oscillator from the state, not the
+        # mode: the graphs stay
         self.cfg = self.cfg._replace(
             mode=dc_replace(self.cfg.mode, shift=float(shift_hz)))
 
@@ -480,7 +549,7 @@ class Receiver:
         """Blocksize change (display.c:866-886 'b' key): M defaults to L+1
         as the reference does; the demod restarts, the overlap resets (its
         length changed), the tuning oscillators and the gain carry over."""
-        old = self.state
+        old = self._state
         cfg = make_receiver_config(
             self.cfg.mode,
             samprate=self.cfg.samprate,
@@ -491,10 +560,8 @@ class Receiver:
             headroom_db=self.cfg.headroom_db,
             enable_pl=self.cfg.enable_pl,
         )
-        self.cfg = cfg.to(self.device)
-        self.state = receiver_init(cfg, device=self.device)._replace(
-            lo2=old.lo2, doppler=old.doppler, gain_factor=old.gain_factor)
-        self._load_filter_args()
+        self._reset(cfg, receiver_init(cfg, device=self.device)._replace(
+            lo2=old.lo2, doppler=old.doppler, gain_factor=old.gain_factor))
 
     def set_mode(self, mode: str | ModeDef) -> None:
         """Runtime mode change (set_mode, radio.c:322-374): the config and
@@ -505,7 +572,7 @@ class Receiver:
         self._rebuild(mode, headroom_db=self.cfg.headroom_db)
 
     def _rebuild(self, mode: ModeDef, headroom_db: float) -> None:
-        old = self.state
+        old = self._state
         cfg = make_receiver_config(
             mode,
             samprate=self.cfg.samprate,
@@ -516,12 +583,10 @@ class Receiver:
             headroom_db=headroom_db,
             enable_pl=self.cfg.enable_pl,
         )
-        self.cfg = cfg.to(self.device)
         # carry oscillator phases and the master overlap across the switch
-        self.state = receiver_init(cfg, device=self.device)._replace(
+        self._reset(cfg, receiver_init(cfg, device=self.device)._replace(
             overlap=old.overlap, lo2=old.lo2, doppler=old.doppler,
-            gain_factor=old.gain_factor)
-        self._load_filter_args()
+            gain_factor=old.gain_factor))
 
 
 def make_receiver(mode: str = "FM", *, device, **kw) -> Receiver:

@@ -34,6 +34,7 @@ from ..models.bank import (BankConfig, BankState, _active_pcm,
                            _bank_step_spectrum, _complex_block, _edit_row,
                            _map_leaves, _pcm, _top_active, bank_step,
                            iq_from_i16)
+from ..utils.graphs import StepGraphs, scan, static_copy
 from .dfft import make_dfft_sm
 
 __all__ = [
@@ -171,16 +172,30 @@ def edit_channel(states, channel: int, fn) -> tuple:
                      lambda s, i, _: fn(s, i))
 
 
+def _ingest(x: torch.Tensor, ingest: str) -> torch.Tensor:
+    """The raw block as complex64: (L, 2) int16 ("i16"), or (L,) complex
+    or (L, 2) float I/Q ("f32")."""
+    return iq_from_i16(x) if ingest == "i16" else _complex_block(x)
+
+
 class ShardedBankStep:
     """The bank step over a mesh for one config: each device runs its
     shard's channels through ``bank_step`` (replicated master FFT) or, with
     `shard_fft`, through the distributed master FFT and the comb gather.
-    Calls take and return the sharded state (one BankState per device)."""
+
+    Calls take the sharded state (one BankState per device) and write the
+    new state into it in place.  Each shard's step is captured as a CUDA
+    graph on its own device (``utils.graphs``; `capture=False` runs it
+    eagerly), so a block replays one graph a shard; the ``shard_fft`` step
+    exchanges data between devices inside the step and stays eager.  The
+    gather onto the first device and ``active()``'s top-k run eagerly
+    after the replays."""
 
     def __init__(self, cfg: BankConfig, mesh: ChannelMesh,
-                 shard_fft: bool = False):
+                 shard_fft: bool = False, capture: bool = True):
         self.mesh = mesh
         self.b = cfg.n_channels // mesh.size
+        self.cfg = cfg
         self.cfgs = shard_configs(cfg, mesh)
         self.dfft = None
         if shard_fft:
@@ -196,28 +211,39 @@ class ShardedBankStep:
                 raise ValueError("shard_fft: the slave gather pattern is not "
                                  "a window of consecutive bins")
             self.dfft = make_dfft_sm(mesh, N)
+            capture = False
+        self.graphs = [StepGraphs(dev, capture) for dev in mesh.devices]
 
-    def _blocks(self, x, ingest: str):
-        """The wideband block as complex64 on every device (replicated)."""
-        out = []
-        for dev in self.mesh.devices:
-            xd = x.to(dev)
-            out.append(iq_from_i16(xd) if ingest == "i16"
-                       else _complex_block(xd))
-        return out
+    def set_config(self, cfg: BankConfig) -> None:
+        """A config of the same geometry (a filter swap): the shards'
+        configs follow it, and the steps are captured again where the
+        demodulator's constants (the FM audio gain) changed with it."""
+        if cfg.demod_cfg is not self.cfg.demod_cfg:
+            for g in self.graphs:
+                g.clear()
+        self.cfg = cfg
+        self.cfgs = shard_configs(cfg, self.mesh)
 
-    def _run(self, states, x, ingest: str):
-        """(new states, per-shard float audio, per-shard diag)."""
-        x = torch.as_tensor(x, device=self.mesh.devices[0])
-        blocks = self._blocks(x, ingest)
-        if self.dfft is None:
-            res = [bank_step(c, s, blk)
-                   for c, s, blk in zip(self.cfgs, states, blocks)]
-        else:
+    def _shard_fn(self, d: int, ingest: str, pcm_out: bool):
+        """Shard d's step: (state, x) -> (state, (audio, diag))."""
+        cfg, dev = self.cfgs[d], self.mesh.devices[d]
+
+        def fn(state, x):
+            new, audio, diag = bank_step(cfg, state, _ingest(x.to(dev),
+                                                             ingest))
+            return new, ((_pcm(audio) if pcm_out else audio), diag)
+
+        return fn
+
+    def _fft_fn(self, ingest: str, pcm_out: bool):
+        """The shard_fft step over every shard: (states, x) -> (states,
+        [(audio, diag), ...])."""
+        def fn(states, x):
             L = self.cfgs[0].master.L
             Q = self.cfgs[0].N // self.mesh.size
             bufs = []
-            for s, blk in zip(states, blocks):
+            for s, dev in zip(states, self.mesh.devices):
+                blk = _ingest(x.to(dev), ingest)
                 if blk.shape[-1] != L:
                     raise ValueError(f"block length {blk.shape[-1]} != L = "
                                      f"{L}")
@@ -226,35 +252,71 @@ class ShardedBankStep:
                                for p, buf in enumerate(bufs)])
             res = [_bank_step_spectrum(c, s, buf[L:], combs)
                    for c, s, buf in zip(self.cfgs, states, bufs)]
-        new, audios, diags = zip(*res)
-        return tuple(new), list(audios), list(diags)
+            return (tuple(r[0] for r in res),
+                    [((_pcm(a) if pcm_out else a), dg) for _, a, dg in res])
+
+        return fn
+
+    def _run(self, states, x, ingest: str, pcm_out: bool) -> list:
+        """Every shard's (audio, diag); the new state written into
+        `states`."""
+        x = torch.as_tensor(x, device=self.mesh.devices[0])
+        if self.dfft is not None:
+            return self.graphs[0].run(None, self._fft_fn(ingest, pcm_out),
+                                      states, (x,))
+        # the block reaches every device before any shard's step is
+        # queued: a copy from the first device waits on its stream, so a
+        # copy queued behind shard 0's step would hold the others back
+        xs = [x.to(dev) for dev in self.mesh.devices]
+        return [g.run((ingest, pcm_out), self._shard_fn(d, ingest, pcm_out),
+                      states[d], (xs[d],)) for d, g in enumerate(self.graphs)]
 
     def _gather_diag(self, diags) -> dict:
         dev = self.mesh.devices[0]
         return {k: gather_shards([d[k] for d in diags], dev)
                 for k in diags[0]}
 
-    def __call__(self, states, x, ingest: str = "f32", pcm_out: bool = False):
+    def step(self, states, x, ingest: str = "f32", pcm_out: bool = False):
         """One block: (L,) complex or (L, 2) float I/Q (ingest "f32"), or
-        (L, 2) int16 (ingest "i16").  Returns (states, audio, diag) with the
-        audio (B, L_dec[, 2]) (int16 when pcm_out) and the diag gathered
-        onto the mesh's first device."""
-        new, audios, diags = self._run(states, x, ingest)
-        if pcm_out:
-            audios = [_pcm(a) for a in audios]
-        return (new, gather_shards(audios, self.mesh.devices[0]),
-                self._gather_diag(diags))
+        (L, 2) int16 (ingest "i16").  Writes the new state into `states`;
+        returns (audio, diag) with the audio (B, L_dec[, 2]) (int16 when
+        pcm_out) and the diag gathered onto the mesh's first device."""
+        outs = self._run(states, x, ingest, pcm_out)
+        return (gather_shards([a for a, _ in outs], self.mesh.devices[0]),
+                self._gather_diag([d for _, d in outs]))
+
+    def scan(self, states, blocks, pcm_out: bool = False):
+        """(k, L, 2) int16 blocks in order: on each shard one graph of k
+        steps.  Returns the audio (k, B, L_dec[, 2]) on the first
+        device."""
+        dev0 = self.mesh.devices[0]
+        if self.dfft is not None:
+            return torch.stack([self.step(states, x, "i16", pcm_out)[0]
+                                for x in blocks])
+        blocks = torch.as_tensor(blocks, device=dev0)
+        staged = [blocks.to(dev) for dev in self.mesh.devices]   # see _run
+        parts = []
+        for d, g in enumerate(self.graphs):
+            def one(s, x, fn=self._shard_fn(d, "i16", pcm_out)):
+                s, (audio, _) = fn(s, x)
+                return s, audio
+
+            parts.append(g.run(
+                ("scan", pcm_out), lambda s, xs, one=one: scan(one, s, xs),
+                states[d], (staged[d],),
+                warmup=lambda s, xs, one=one: one(s, xs[0])))
+        return torch.cat([p.to(dev0) for p in parts], dim=1)
 
     def active(self, states, x_i16, max_active: int,
                n_valid: int | None = None):
         """bank_step_active over the mesh: each shard's (B/D,) audio peaks
         are gathered onto the first device, the top-max_active taken there
         (rows at or past n_valid never compete), and each selected row is
-        fetched from the shard that owns it.  Returns (states, pcm, idx,
-        diag) as bank_step_active."""
-        new, audios, diags = self._run(states, x_i16, "i16")
+        fetched from the shard that owns it.  Writes the new state into
+        `states`; returns (pcm, idx, diag) as bank_step_active."""
+        outs = self._run(states, x_i16, "i16", False)
         dev0, b = self.mesh.devices[0], self.b
-        flats = [a.reshape(a.shape[0], -1) for a in audios]
+        flats = [a.reshape(a.shape[0], -1) for a, _ in outs]
         peak = gather_shards(
             [torch.amax(torch.abs(f), dim=-1) for f in flats], dev0)
         idx = _top_active(peak, max_active, n_valid)
@@ -264,7 +326,7 @@ class ShardedBankStep:
             sel = rows if sel is None else torch.where(
                 (idx // b == d)[:, None], rows, sel)
         pcm, idx = _active_pcm(sel, idx, n_valid)
-        return new, pcm, idx, self._gather_diag(diags)
+        return pcm, idx, self._gather_diag([d for _, d in outs])
 
 
 def make_sharded_bank_step(cfg: BankConfig, mesh: ChannelMesh,
@@ -281,14 +343,18 @@ def make_sharded_bank_step(cfg: BankConfig, mesh: ChannelMesh,
     mesh (pad_channels pads a frequency list).
 
     Returns (step, sharded_state); step(sharded_state, x) -> (sharded_state,
-    audio, diag)."""
+    audio, diag).  The step is functional and eager: it leaves the state
+    it is given as it was (``ChannelBank(mesh=)`` holds a static state and
+    replays each shard's captured step)."""
     if ingest not in ("f32", "i16"):
         raise ValueError(f"ingest must be 'f32' or 'i16', got {ingest!r}")
     if pcm_out and ingest != "i16":
         raise ValueError("pcm_out requires ingest='i16'")
-    sb = ShardedBankStep(cfg, mesh, shard_fft)
+    sb = ShardedBankStep(cfg, mesh, shard_fft, capture=False)
 
     def step(states, x):
-        return sb(states, x, ingest, pcm_out)
+        states = tuple(static_copy(s) for s in states)
+        audio, diag = sb.step(states, x, ingest, pcm_out)
+        return states, audio, diag
 
     return step, shard_bank_state(mesh, state)

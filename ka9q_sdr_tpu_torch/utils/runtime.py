@@ -18,10 +18,12 @@ class HostCopy:
     pinned host memory and records an event behind them on the current
     stream of each device they come from (a mesh's outputs may lie on
     several cards); ``wait()`` waits on those events only and returns numpy
-    arrays.  CPU tensors are taken as they are.  Holding the source tensors
-    until then is safe because every step of the port returns fresh
-    tensors; a step that reused its output buffers (a captured CUDA graph)
-    would have to copy them out before the next replay."""
+    arrays.  CPU tensors are taken as they are.  The source tensors must
+    not change before the copy has run: the host wrappers replay captured
+    CUDA graphs (``utils.graphs``) whose output buffers every replay
+    overwrites, so each call hands back clones that it queued on the same
+    stream, which the caller owns; a copy queued behind them on that
+    stream reads them before any later block is queued."""
 
     def __init__(self, tensors):
         self._host = []

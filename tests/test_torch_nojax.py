@@ -1,7 +1,7 @@
 """The port must import and run where jax is not installed (the machine
 with the card has none) and without the JAX package: import every port
 module and run two blocks of a tiny bank of each demodulator family, a live
-retune, a mixed-mode MultiBank, a receiver fed by the test modulator, a
+retune, a scan, a mixed-mode MultiBank, a receiver fed by the test modulator, a
 column FFT, the ``bankd`` and ``radio`` daemons on a tiny recording, the
 packet modem's session on an AFSK frame, two front-end blocks of a tiny
 recording, ``modulate`` on a few blocks, a band-plan lookup, a Mixer read,
@@ -38,7 +38,7 @@ from ka9q_sdr_tpu_torch.io import (BlockAssembler, IQReader, IQRecorder,
                                    PCMOutput, write_metadata)
 from ka9q_sdr_tpu_torch.models.doppler import DopplerSteerer
 from ka9q_sdr_tpu_torch.net import multicast, rtcp, rtp, status
-from ka9q_sdr_tpu_torch.utils import misc, modes, runtime, state
+from ka9q_sdr_tpu_torch.utils import graphs, misc, modes, runtime, state
 from ka9q_sdr_tpu_torch import __main__ as listing, decode
 from ka9q_sdr_tpu_torch.apps import (aprs, aprsfeed, frontend, iqplay,
                                      iqrecord, modulate, packetd, pcmsend)
@@ -76,6 +76,8 @@ for _ in range(2):
 assert audio.shape == (960,) and float(diag["n0"]) >= 0.0
 rx.set_mode("FM")
 assert rx.process_offline(np.zeros((2, 3840, 2), np.int16)).shape == (2, 960)
+assert bank.process_scan_i16(np.stack([x, x])).shape == (2, 2, 960, 2)
+assert not graphs.StepGraphs("cpu").capture
 interop.state_to_numpy(rx.state)
 yr, yi = pstock.make_fft_cols(8, 4, 4)(torch.ones(8, 4), torch.zeros(8, 4))
 assert float(yr[0, 0]) == 8.0
