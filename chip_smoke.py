@@ -81,7 +81,12 @@ drives the channel bank through its user entry points:
   filter swap, one replay a block on each device; an 8-block scan
   (``process_scan_i16``, ``process_offline``) equal to 8 single eager
   steps with one replay a call; and eager against captured ms/block,
-  device busy, capture time and the memory each holds, in one call.
+  device busy, capture time and the memory each holds, in one call;
+- the complex notch (``ops/iir``) at a 192 kHz receiver's block and a
+  24.576 Msps block, the state carried, against the CPU port and a float64
+  transliteration of filter.c, and ``parallel.dryrun.entry()`` (the
+  flagship step's compile check, the 16-channel FM bank): 20 blocks, each
+  one replay bit-equal to the eager ``bank_step``, two fills a block.
 
 Times come from CUDA events.  Phases print their
 findings line by line.
@@ -3071,6 +3076,113 @@ def _graph_paths(bank_mod, receiver, modulate, smi, freqs, pcm, cam_car,
                               bank_mod.iq_from_i16(x))[0]))
 
 
+
+#: phase 31: the notch at a 192 kHz receiver's block and a 24.576 Msps
+#: block, NOTCH_BLOCKS blocks each with the state carried; its frequency
+#: (cycles/sample) and bandwidth; entry()'s blocks
+NOTCH_RATES = ((192000, 3840), (24576000, 491520))
+NOTCH_F, NOTCH_BW, NOTCH_BLOCKS = 0.05, 0.01, 3
+ENTRY_BLOCKS = 20
+
+
+def notch_f64(x, f, bw):
+    """The notch of filter.c:551-571 per sample in float64: the oscillator
+    starts at phase 0 and steps f cycles a sample, and each sample is spun
+    down, has the running DC estimate taken off before that estimate takes
+    it in, and is spun back up."""
+    oscs = np.exp(2j * np.pi * ((f * np.arange(len(x))) % 1.0))
+    out = []
+    dc = 0j
+    for s, osc in zip(x.astype(np.complex128).tolist(), oscs.tolist()):
+        u = s * osc.conjugate()
+        r = u - dc
+        dc += bw * r
+        out.append(r * osc)
+    return np.array(out), dc
+
+
+def phase_notch_entry(iir, dryrun, bank_mod, ffill, smi):
+    """The complex notch on the card against the CPU port's notch and a
+    float64 transliteration of the C; then ``dryrun.entry()``: each block
+    one replay, bit-equal to the eager bank_step, two fills a block."""
+    print("phase 31: the complex notch (ops/iir) on the card; "
+          "parallel.dryrun.entry(), the flagship step's compile check",
+          flush=True)
+    rng = np.random.default_rng(SEED + 31)
+    for fs, L in NOTCH_RATES:
+        n = L * NOTCH_BLOCKS
+        x = (0.1 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+             + np.exp(2j * np.pi * NOTCH_F * np.arange(n))).astype(
+                 np.complex64)
+        xd = torch.as_tensor(x, device=DEV)
+        out = {}
+        for dev, xs in ((DEV, xd), ("cpu", torch.as_tensor(x))):
+            st = iir.notch_init(NOTCH_F, NOTCH_BW, device=dev)
+            ys = []
+            for b in range(NOTCH_BLOCKS):
+                st, y = iir.notch_block(st, xs[b * L:(b + 1) * L])
+                ys.append(y)
+            out[dev] = (torch.cat(ys).cpu().numpy(),
+                        complex(st.dcstate.cpu()))
+        y64, dc64 = notch_f64(x, NOTCH_F, NOTCH_BW)
+        (yc, dcc), (yh, dch) = out[DEV], out["cpu"]
+        rms = float(np.sqrt(np.mean(np.abs(y64) ** 2)))
+        e_cpu = float(np.sqrt(np.mean(np.abs(yc - yh) ** 2))) / rms
+        e_64 = float(np.sqrt(np.mean(np.abs(yc - y64) ** 2))) / rms
+        e_dc = abs(dcc - dch) / abs(dch)
+        tone = abs(np.vdot(np.exp(2j * np.pi * NOTCH_F * np.arange(n - L, n)),
+                           yc[n - L:])) / L
+        st = iir.notch_init(NOTCH_F, NOTCH_BW, device=DEV)
+        blk = xd[:L]
+        ms = cuda_ms(lambda: iir.notch_block(st, blk), 20)
+        print(f"  notch {fs / 1e3:g} kHz, {NOTCH_BLOCKS} blocks of {L}: "
+              f"card against the CPU port RMS {e_cpu:.3e} of the output's, "
+              f"dcstate {e_dc:.3e}; against float64 filter.c {e_64:.3e}; "
+              f"tone left {tone:.2e} of 1; {ms:.4f} ms/block [{smi}]",
+              flush=True)
+        check(e_cpu <= 1e-5 and e_dc <= 1e-5 and e_64 <= 1e-4
+              and tone < 0.01 and yc.shape == (n,) and np.isfinite(yc).all(),
+              f"notch at {fs / 1e3:g} kHz on the card: within 1e-5 of the "
+              f"CPU port (output RMS, dcstate) and 1e-4 of float64 filter.c, "
+              f"the tone gone")
+    fn, (state, x0) = dryrun.entry()
+    bank = fn.bank
+    cfg = bank.cfg
+    g = torch.Generator(device=DEV).manual_seed(SEED + 32)
+    blocks = [x0 if b < ENTRY_BLOCKS // 2 else x0 + 1e-3 * torch.randn(
+        x0.shape, dtype=torch.complex64, device=DEV, generator=g)
+        for b in range(ENTRY_BLOCKS)]
+    ffill.launches = 0
+    r0 = bank.graphs[0].replays
+    st, outs = state, []
+    for x in blocks:
+        st, audio, diag = fn(st, x)
+        outs.append((st, audio, diag))
+    launches = ffill.launches
+    replays = bank.graphs[0].replays - r0
+    ref, equal = state, True
+    for x, got in zip(blocks, outs):
+        ref, audio, diag = bank_mod.bank_step(cfg, ref, x)
+        equal = equal and _bit_equal(got, (ref, audio, diag))
+    ok = all(torch.isfinite(a).all() and a.shape == (16, cfg.L_dec)
+             for _, a, _ in outs)
+    check(equal and ok and replays == ENTRY_BLOCKS
+          and launches == 2 * ENTRY_BLOCKS,
+          f"entry(): {ENTRY_BLOCKS} blocks of the 16-ch FM bank (N = "
+          f"{cfg.N}), each one replay ({replays}), bit-equal, state "
+          f"included, to the eager bank_step; ffill launches {launches} "
+          f"(2 a block)")
+    ms = cuda_ms(lambda: fn(st, x0), 20)
+    eager = {"s": state}
+
+    def step():
+        eager["s"], _, _ = bank_mod.bank_step(cfg, eager["s"], x0)
+
+    ms_eager = cuda_ms(step, 20)
+    print(f"  entry(): {ms:.4f} ms/block through fn (state in, one replay, "
+          f"state out), eager bank_step {ms_eager:.4f} [{smi}]", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -3083,7 +3195,7 @@ def main():
         from ka9q_sdr_tpu_torch.models import receiver
         from ka9q_sdr_tpu_torch.models.demod_fm import _pl_measure
         from ka9q_sdr_tpu_torch.models.demod_linear import _acquire
-        from ka9q_sdr_tpu_torch.ops import _kernels, agc, ffill, pstock
+        from ka9q_sdr_tpu_torch.ops import _kernels, agc, ffill, iir, pstock
         from ka9q_sdr_tpu_torch import io as io_mod, native
         from ka9q_sdr_tpu_torch.apps import bankd, radio
         from ka9q_sdr_tpu_torch.net import status
@@ -3234,6 +3346,7 @@ def main():
         if torch.cuda.device_count() >= MESH_D:
             phase_graphs(bank_mod, receiver, modulate, mesh_mod, smi, freqs,
                          cards=True)
+        phase_notch_entry(iir, dryrun, bank_mod, ffill, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -52,7 +52,7 @@ def should_relay(frame) -> tuple[bool, str]:
     return True, ""
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     # add_help=False so -h can be the APRS-IS host, as in the reference
     # (aprsfeed.c getopt "u:p:I:vh:f:"); --help still works
     p = argparse.ArgumentParser(prog="aprsfeed", add_help=False)
@@ -71,7 +71,11 @@ def main(argv=None) -> int:
                         "stderr (aprsfeed.c -f)")
     p.add_argument("--dry-run", action="store_true",
                    help="log what would be sent, no TCP connection")
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
 
     if args.logfile:
         logf = open(args.logfile, "a", buffering=1)

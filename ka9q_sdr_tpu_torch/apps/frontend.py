@@ -283,7 +283,7 @@ class FrontEndDaemon:
                 return
 
 
-def build_args(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="frontend")
     p.add_argument("-R", "--output", required=True)
     p.add_argument("-f", "--frequency", default="146m")
@@ -314,7 +314,11 @@ def build_args(argv=None):
                         "(hackrf.c:679-749), off = gains held; auto picks "
                         "hackrf when --decimate-log2 > 0")
     p.add_argument("--seconds", type=float, default=0.0)
-    return p.parse_args(argv)
+    return p
+
+
+def build_args(argv=None):
+    return build_parser().parse_args(argv)
 
 
 def main(argv=None) -> int:

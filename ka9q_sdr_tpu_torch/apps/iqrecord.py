@@ -23,7 +23,7 @@ from ..net.sdr_header import LegacyStatus, LEGACY_STATUS_SIZE
 from ..io.iqfile import IQRecorder
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="iqrecord")
     p.add_argument("-I", "--input", required=True, help="multicast name:port")
     p.add_argument("-d", "--duration", type=float, default=0.0,
@@ -37,7 +37,11 @@ def main(argv=None) -> int:
                    help="suppress display (reference -q; we print nothing "
                         "either way)")
     p.add_argument("--packets", type=int, default=0, help="stop after N")
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
     from ..utils.misc import set_locale
     set_locale(args.locale)
 

@@ -121,7 +121,7 @@ def _attach_tui(mixer, stop, tty_path="/dev/tty"):
     return pcm_out
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="monitor")
     p.add_argument("groups", nargs="*", help="PCM/Opus multicast name:port")
     p.add_argument("-I", dest="groups_opt", action="append", default=[],
@@ -146,6 +146,11 @@ def main(argv=None) -> int:
     p.add_argument("--tui", action="store_true",
                    help="interactive session mixer (gain/pan/mute) on "
                         "/dev/tty; the PCM stream keeps stdout")
+    return p
+
+
+def main(argv=None) -> int:
+    p = build_parser()
     args = p.parse_args(argv)
     if audio_device_notice("monitor", args.list_audio, args.audiodev,
                            "output", "the mixed 48 kHz stereo s16 stream "

@@ -29,7 +29,7 @@ from ..audio.transcode import OpusTranscoder
 from ..net.multicast import setup_mcast, _parse_target
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="opusd")
     p.add_argument("-I", "--input", required=True)
     p.add_argument("-R", "--output", required=True)
@@ -56,7 +56,11 @@ def main(argv=None) -> int:
     p.add_argument("--packets", type=int, default=0)
     p.add_argument("--seconds", type=float, default=0.0,
                    help="exit after this long (native path; 0 = forever)")
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
 
     if not OPUS_AVAILABLE:
         print("libopus not available", file=sys.stderr)

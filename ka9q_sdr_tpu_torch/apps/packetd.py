@@ -78,7 +78,7 @@ class PacketSession:
             self.out_send(out_hdr.to_bytes() + frame)
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="packetd")
     p.add_argument("-I", "--input", required=True, action="append",
                    help="PCM multicast (repeatable)")
@@ -86,7 +86,11 @@ def main(argv=None) -> int:
     p.add_argument("-T", "--ttl", type=int, default=1)
     p.add_argument("-v", "--verbose", action="store_true")
     p.add_argument("--packets", type=int, default=0)
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
 
     import select
 

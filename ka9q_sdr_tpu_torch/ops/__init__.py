@@ -34,6 +34,6 @@ from .nco import (
 )
 from .ffill import forward_fill, forward_fill_multi, last_true_index
 from .agc import AGCParams, AGCState, agc_init, agc_block, agc_block_coarse
-from .iir import one_pole_lowpass, dc_block
+from .iir import one_pole_lowpass, dc_block, notch_init, notch_block
 from .decimate import hb15_coeffs, hb15_block, hb3_block, hb_cascade, cascade_init
-from .pstock import make_fft_cols, stockham_rows
+from .pstock import make_fft_cols, stockham_rows, stockham_rows_np

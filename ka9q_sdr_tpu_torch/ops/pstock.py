@@ -31,7 +31,8 @@ import ctypes
 import numpy as np
 import torch
 
-__all__ = ["stockham_rows", "make_fft_cols", "fft_cols_plain"]
+__all__ = ["stockham_rows", "stockham_rows_np", "make_fft_cols",
+           "fft_cols_plain"]
 
 #: Kernel launches so far (one per ``fft_cols`` call on CUDA tensors).
 launches = 0
@@ -59,10 +60,26 @@ def twiddle_table(Q: int) -> np.ndarray:
     return np.exp(-2j * np.pi * np.arange(Q) / Q).astype(np.complex64)
 
 
+def stockham_rows_np(x: np.ndarray) -> np.ndarray:
+    """Reference recurrence (numpy): FFT over axis 0 of (Q, W), radix-2
+    autosorting Stockham.  Exact vs np.fft.fft(axis=0)."""
+    Q, W = x.shape
+    y = x
+    n, s = Q, 1
+    while n > 1:
+        m = n // 2
+        v = y.reshape(n, s * W)
+        a, b = v[:m], v[m:]
+        w = np.exp(-2j * np.pi * np.arange(m) / n)[:, None]
+        y = np.stack([a + b, (a - b) * w], axis=1).reshape(Q, W)
+        n, s = m, s * 2
+    return y
+
+
 def stockham_rows(x: torch.Tensor) -> torch.Tensor:
     """Reference recurrence: FFT over axis 0 of a complex (Q, W) tensor,
-    radix-2 autosorting Stockham (a copy of the JAX package's
-    ``stockham_rows_np``; twiddles in float64, cast to x's dtype)."""
+    radix-2 autosorting Stockham (``stockham_rows_np`` on torch tensors;
+    twiddles in float64, cast to x's dtype)."""
     Q, W = x.shape
     y = x
     n, s = Q, 1

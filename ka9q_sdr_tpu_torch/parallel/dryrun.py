@@ -18,6 +18,9 @@ the sharded code on it):
     python -m ka9q_sdr_tpu_torch.parallel.dryrun 4          # the first 4 cards
     python -m ka9q_sdr_tpu_torch.parallel.dryrun 8 --cpu    # 8 CPU shards
     dryrun_multichip(4, devices=["cuda:0"] * 4)             # on one card
+
+``entry()`` is the twin of ``__graft_entry__.entry()``: the flagship step
+(the FM channel bank) on a reduced geometry, as ``(fn, example_args)``.
 """
 
 from __future__ import annotations
@@ -36,7 +39,11 @@ from ..ops.fftfilt import fft_fourstep
 from ..utils.runtime import configure_torch
 from .mesh import gather_bank_state, make_channel_mesh, make_sharded_bank_step
 
-__all__ = ["dryrun_multichip"]
+__all__ = ["dryrun_multichip", "entry"]
+
+#: ``entry()``'s bank, the geometry of ``__graft_entry__._bank(16)``: 16 FM
+#: channels at 1.536 Msps, 48 kHz out, an N = 8192 master FFT
+ENTRY = dict(n_channels=16, samprate=1.536e6, L=3840, M=4353)
 
 
 def _leaves(tree):
@@ -336,6 +343,43 @@ def dryrun_multichip(n_devices: int, devices=None, cpu: bool = False) -> None:
                    shard_fft=True, atol=1e-3, label="shard_fft+ISB")
     # 11) live FM -> USB migration on the sharded MultiBank
     _check_migration(mesh)
+
+
+def entry(device=None):
+    """The flagship step on a reduced geometry: returns ``(fn,
+    example_args)``, and ``fn(*example_args)`` runs one block.
+
+    The bank is ``ENTRY``'s, with the JAX package's default FM
+    configuration and its channels spread over 90% of the band.  ``fn(state,
+    x) -> (state, audio, diag)`` runs the block `x` ((L,) complex64) as the
+    port serves it: `state` is written into a ``ChannelBank``'s static
+    state and the block is one call of that bank, on a card one replay of
+    its captured step (eager on the CPU).  The state, the (16, 120) audio
+    and the diagnostics it returns are the caller's.  The example is the
+    bank's initial state and the JAX package's block: real part 0.1,
+    imaginary part 0.  ``fn.bank`` is the bank.
+
+    It runs on the first card, or on `device` where the caller names one
+    (``"cpu"`` included); with no card and no device it raises."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("entry: no CUDA device; pass device='cpu' "
+                               "to run on the host CPU")
+        device = "cuda"
+    n_ch, fs = ENTRY["n_channels"], ENTRY["samprate"]
+    cfg = make_bank_config(n_ch, "FM", samprate=fs, L=ENTRY["L"],
+                           M=ENTRY["M"])
+    bank = ChannelBank(cfg, _freqs(n_ch, fs), device=device)
+
+    def fn(state, x):
+        bank.state = state
+        audio, diag = bank.process(x)
+        return bank.state, audio, diag
+
+    fn.bank = bank
+    x = torch.full((ENTRY["L"],), 0.1, dtype=torch.complex64,
+                   device=bank.device)
+    return fn, (bank.state, x)
 
 
 def main(argv=None) -> int:

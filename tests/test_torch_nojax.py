@@ -6,7 +6,8 @@ column FFT, the ``bankd`` and ``radio`` daemons on a tiny recording, the
 packet modem's session on an AFSK frame, two front-end blocks of a tiny
 recording, ``modulate`` on a few blocks, a band-plan lookup, a Mixer read,
 an Opus round trip (where libopus is present), the sharded bank, the
-distributed FFT and ``bankd --mesh`` on CPU shards, and the stage profile,
+distributed FFT and ``bankd --mesh`` on CPU shards, the stage profile, the
+``utils`` re-exports, a notch block and two blocks of ``dryrun.entry``,
 on the CPU in a subprocess where ``import jax`` and ``import ka9q_sdr_tpu``
 fail."""
 
@@ -167,6 +168,18 @@ import contextlib, json
 with contextlib.redirect_stdout(io.StringIO()) as prof:
     assert stage_profile.main(["--cpu", "--iters", "1"]) == 0
 assert json.loads(prof.getvalue())["full_ms"] > 0
+from ka9q_sdr_tpu_torch.utils import (DEFAULT_MODES, ModeDef, db2power,
+                                      parse_frequency)
+assert parse_frequency("146m52") == 146.52e6 and db2power(10.0) == 10.0
+assert isinstance(DEFAULT_MODES["FM"], ModeDef)
+from ka9q_sdr_tpu_torch.ops import notch_block, notch_init
+nst, ny = notch_block(notch_init(0.1, 0.01, device="cpu"),
+                      torch.ones(64, dtype=torch.complex64))
+assert ny.shape == (64,) and nst.dcstate.dtype == torch.complex64
+efn, (est, ex) = dryrun.entry("cpu")
+for _ in range(2):
+    est, eaudio, ediag = efn(est, ex)
+assert eaudio.shape == (16, 120) and bool(torch.isfinite(eaudio).all())
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "ka9q_sdr_tpu")
                for m, mod in sys.modules.items() if mod is not None)
 print("ok")

@@ -238,7 +238,7 @@ def test_forward_fill_scalar_init_and_batch_dims():
 
 @pytest.mark.parametrize("Q,W", [(1, 3), (16, 3), (1024, 3), (64, 5)])
 def test_stockham_rows_matches_numpy(Q, W):
-    from ka9q_sdr_tpu.ops.pstock import stockham_rows_np
+    from ka9q_sdr_tpu_torch.ops.pstock import stockham_rows_np
 
     rng = np.random.default_rng(Q)
     x = rng.standard_normal((Q, W)) + 1j * rng.standard_normal((Q, W))
