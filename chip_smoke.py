@@ -86,7 +86,12 @@ drives the channel bank through its user entry points:
   24.576 Msps block, the state carried, against the CPU port and a float64
   transliteration of filter.c, and ``parallel.dryrun.entry()`` (the
   flagship step's compile check, the 16-channel FM bank): 20 blocks, each
-  one replay bit-equal to the eager ``bank_step``, two fills a block.
+  one replay bit-equal to the eager ``bank_step``, two fills a block;
+- the benchmark runner (``python -m ka9q_sdr_tpu_torch.bench``, the twin
+  of ``bench.py``) at its defaults in a subprocess: its rows printed, one
+  result line naming this card, every default row with the fill or AGC
+  kernel launched as its path needs, and its FM+PL 4096 serving row
+  within 15% of the captured scan timed above.
 
 Times come from CUDA events.  Phases print their
 findings line by line.
@@ -3183,6 +3188,93 @@ def phase_notch_entry(iir, dryrun, bank_mod, ffill, smi):
           f"state out), eager bank_step {ms_eager:.4f} [{smi}]", flush=True)
 
 
+#: phase 32: the runner's watchdog (s), and how far its FM+PL 4096
+#: serving row's ms/block may be from phase 30's captured scan
+BENCH_DEADLINE_S = 600
+BENCH_ROW_TOL = 0.15
+#: the runner's default rows in order ("# measuring ..." label), each with
+#: the kernels it must launch (ffill, agc) and must not
+BENCH_ROWS = (
+    ("FM 8192 ch x 393.216 Msps L=58195968", (True, False)),
+    ("FM 4096 ch x 393.216 Msps L=7864320", (True, False)),
+    ("FM 5120 ch x 393.216 Msps L=7864320", (True, False)),
+    ("FM 6144 ch x 393.216 Msps L=7864320", (True, False)),
+    ("FM 2048 ch x 393.216 Msps L=58195968", (True, False)),
+    ("MultiBank FM:3072+USB:512+CAM:512 x 393.216 Msps L=7864320",
+     (True, True)),
+    ("MultiBank FM:5120+USB:512+CAM:512 x 393.216 Msps L=7864320",
+     (True, True)),
+    ("CAM 4096 ch x 393.216 Msps L=7864320", (False, True)),
+    ("CAM 2048 ch x 24.576 Msps L=491520", (False, True)),
+)
+BENCH_ROW_RE = re.compile(
+    r"#   row: slope ([\d.]+) ms/block \| CUDA events ([\d.]+) ms/block \| "
+    r"peak allocated (\d+) B .*\| launches ffill \+(\d+) agc \+(\d+)")
+
+
+def phase_bench(smi, scan_ms):
+    """``python -m ka9q_sdr_tpu_torch.bench`` at bench.py's defaults in a
+    subprocess: its stderr rows printed here, one result line naming the
+    card, every default row in order with the fill or AGC kernel launched
+    as its path needs, and the FM+PL 4096 serving row's slope within
+    BENCH_ROW_TOL of phase 30's captured scan (`scan_ms`, a block)."""
+    import gc
+
+    print("phase 32: the benchmark runner, python -m "
+          "ka9q_sdr_tpu_torch.bench at bench.py's defaults", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ka9q_sdr_tpu_torch.bench"], cwd=root,
+        env=dict(os.environ, BENCH_DEADLINE_S=str(BENCH_DEADLINE_S)),
+        capture_output=True, text=True, timeout=BENCH_DEADLINE_S + 60)
+    secs = time.monotonic() - t0
+    for line in proc.stderr.splitlines():
+        print(f"  {line}", flush=True)
+    check(proc.returncode == 0, f"bench exits 0 (rc {proc.returncode}, "
+          f"{secs:.1f} s)")
+    lines = proc.stdout.splitlines()
+    try:
+        res = json.loads(lines[0]) if len(lines) == 1 else {}
+    except json.JSONDecodeError:
+        res = {}
+    print(f"  stdout: {proc.stdout.strip()}", flush=True)
+    power = res.get("power_limit_w")
+    check(set(res) == {"metric", "value", "unit", "vs_baseline", "device",
+                       "power_limit_w"}
+          and res["metric"] == "channels_x_Msps_demodulated_per_chip"
+          and isinstance(res["value"], (int, float)) and res["value"] > 0
+          and res["device"] == torch.cuda.get_device_name(0)
+          and isinstance(power, (int, float)) and power > 0,
+          "one stdout JSON line: metric, value > 0, unit, vs_baseline, "
+          "device (this card), power_limit_w")
+    rows, label = [], None
+    for line in proc.stderr.splitlines():
+        if line.startswith("# measuring "):
+            label = line[len("# measuring "):].removesuffix("...")
+        m = BENCH_ROW_RE.match(line)
+        if m:
+            rows.append((label, float(m[1]), float(m[2]), int(m[3]),
+                         int(m[4]), int(m[5])))
+    check([r[0] for r in rows] == [r for r, _ in BENCH_ROWS],
+          f"the {len(BENCH_ROWS)} default rows in order, each with its "
+          f"card line ({len(rows)} found)")
+    for (label, slope, events, peak, fills, agcs), (_, (fill, agc_)) in zip(
+            rows, BENCH_ROWS):
+        check((fills > 0) == fill and (agcs > 0) == agc_,
+              f"{label}: launches ffill +{fills}, agc +{agcs} (on its "
+              f"path: ffill {fill}, agc {agc_})")
+    serve = [r for r in rows if r[0] == BENCH_ROWS[1][0]]
+    if serve:
+        slope = serve[0][1]
+        check(abs(slope / scan_ms - 1) <= BENCH_ROW_TOL,
+              f"FM+PL 4096 serving row {slope:.4f} ms/block (CUDA events "
+              f"{serve[0][2]:.4f}) within {BENCH_ROW_TOL:.0%} of phase 30's "
+              f"captured scan {scan_ms:.4f} [{smi}]")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -3343,10 +3435,12 @@ def main():
         phase_tools(stage_profile, serve_soak, ffill, smi)
         torch.cuda.empty_cache()
         phase_graphs(bank_mod, receiver, modulate, mesh_mod, smi, freqs)
+        fm_scan_ms = next(r[5] for r in GRAPH_ROWS if r[0] == "FM+PL 4096 ch")
         if torch.cuda.device_count() >= MESH_D:
             phase_graphs(bank_mod, receiver, modulate, mesh_mod, smi, freqs,
                          cards=True)
         phase_notch_entry(iir, dryrun, bank_mod, ffill, smi)
+        phase_bench(smi, fm_scan_ms)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -36,6 +36,8 @@ layout and public names so each counterpart sits under the same path:
 - ``utils``    — the mode table, the band plan, frequency parsing, state
                  files, the daemons' device choice, device timing.
 - ``interop``  — carries state between the two packages as numpy trees.
+- ``bench``    — the flagship benchmark (the root ``bench.py``'s rows on
+                 the card through the captured banks).
 
 It imports torch and numpy and never jax, nor anything of the JAX package:
 the host modules the daemons need are copies owned by the port.  No library

@@ -7,7 +7,8 @@ packet modem's session on an AFSK frame, two front-end blocks of a tiny
 recording, ``modulate`` on a few blocks, a band-plan lookup, a Mixer read,
 an Opus round trip (where libopus is present), the sharded bank, the
 distributed FFT and ``bankd --mesh`` on CPU shards, the stage profile, the
-``utils`` re-exports, a notch block and two blocks of ``dryrun.entry``,
+``utils`` re-exports, a notch block, two blocks of ``dryrun.entry`` and a
+tiny ``--cpu`` pass of the benchmark runner (``bench``),
 on the CPU in a subprocess where ``import jax`` and ``import ka9q_sdr_tpu``
 fail."""
 
@@ -168,6 +169,19 @@ import contextlib, json
 with contextlib.redirect_stdout(io.StringIO()) as prof:
     assert stage_profile.main(["--cpu", "--iters", "1"]) == 0
 assert json.loads(prof.getvalue())["full_ms"] > 0
+from ka9q_sdr_tpu_torch import bench
+os.environ.update(BENCH_CHANNELS="4", BENCH_SAMPRATE="1536000",
+                  BENCH_L="30720", BENCH_M="34817", BENCH_WARMUP="1",
+                  BENCH_ITERS="3", BENCH_REF_L="30720",
+                  BENCH_SERVE_CHANNELS="4", BENCH_CHUNK="2",
+                  BENCH_SCALING="0", BENCH_MIXED="FM:2,USB:1,CAM:1",
+                  BENCH_PLL_CHANNELS="4", BENCH_PLL_SAMPRATE="1536000",
+                  BENCH_PLL_L="30720", BENCH_PLL_M="34817",
+                  BENCH_PLL_WIDE_CHANNELS="0", BENCH_DEADLINE_S="0")
+with contextlib.redirect_stdout(io.StringIO()) as res:
+    assert bench.main(["--cpu"]) == 0
+res = json.loads(res.getvalue())
+assert res["value"] > 0 and res["device"] == "cpu"
 from ka9q_sdr_tpu_torch.utils import (DEFAULT_MODES, ModeDef, db2power,
                                       parse_frequency)
 assert parse_frequency("146m52") == 146.52e6 and db2power(10.0) == 10.0

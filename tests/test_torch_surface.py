@@ -5,8 +5,11 @@ Names: both packages are walked with ``ast``, neither imported.  For every
 module of ``ka9q_sdr_tpu`` the port's module of the same path must hold
 every public (no leading underscore) top-level function and class and
 every name in ``__all__``; for every ``__init__.py`` also every name it
-imports (the re-exports).  Only ``BY_DESIGN`` is exempt: the names that
-ROADMAP.md §1 "Not ported, by design" leaves out.
+imports (the re-exports).  The programs at the root of the repo pair the
+same way with their twins in the port: ``bench.py`` with
+``ka9q_sdr_tpu_torch/bench.py`` and ``tools/<name>.py`` with
+``ka9q_sdr_tpu_torch/tools/<name>.py``.  Only ``BY_DESIGN`` is exempt: the
+names that ROADMAP.md §1 "Not ported, by design" leaves out.
 
 Units: every ``deploy/*.service`` has a unit of the same name in
 ``ka9q_sdr_tpu_torch/deploy/`` whose ``ExecStart`` is the same command
@@ -32,7 +35,8 @@ PORT = ROOT / "ka9q_sdr_tpu_torch"
 #: Left out by design (ROADMAP.md §1): the real-dtype packing of a TPU
 #: runtime's jit boundary and the wrappers built on it (each replaced by
 #: the port's captured graphs), the MXU FFT, and the JAX configuration
-#: (the port's twin is ``configure_torch``).  None: the whole module.
+#: (the port's twin is ``configure_torch``), and the probe that asks only
+#: whether the MXU FFT wins on a TPU.  None: the whole module.
 BY_DESIGN = {
     "ops/packing.py": None,
     "ops/__init__.py": {"c2r", "r2c", "tree_c2r", "tree_r2c"},
@@ -41,9 +45,18 @@ BY_DESIGN = {
     "models/receiver.py": {"receiver_step_packed", "receiver_scan_packed"},
     "ops/fftfilt.py": {"fft_mxu"},
     "utils/runtime.py": {"configure_jax"},
+    "tools/fft24_probe.py": None,
 }
 
 MODULES = sorted(p.relative_to(JAX).as_posix() for p in JAX.rglob("*.py"))
+#: the root's programs, each paired with the port's file of the same path
+SCRIPTS = ["bench.py"] + sorted(p.relative_to(ROOT).as_posix()
+                                for p in (ROOT / "tools").glob("*.py"))
+
+
+def _source(rel: str) -> Path:
+    """The JAX side of `rel`: a root program or a module of the package."""
+    return ROOT / rel if rel in SCRIPTS else JAX / rel
 
 
 def public_names(path: Path) -> set[str]:
@@ -66,10 +79,10 @@ def public_names(path: Path) -> set[str]:
     return {n for n in out if not n.startswith("_")}
 
 
-@pytest.mark.parametrize("rel", MODULES)
+@pytest.mark.parametrize("rel", MODULES + SCRIPTS)
 def test_port_has_every_public_name(rel):
     exempt = BY_DESIGN.get(rel, set())
-    want = public_names(JAX / rel)
+    want = public_names(_source(rel))
     if exempt is None:
         assert not (PORT / rel).exists()
         return
@@ -82,10 +95,10 @@ def test_by_design_list_is_current():
     """Each exempt name is one the JAX module has and the port lacks: the
     list names nothing that was ported or that JAX dropped."""
     for rel, names in BY_DESIGN.items():
-        assert (JAX / rel).exists(), rel
+        assert _source(rel).exists(), rel
         if names is None:
             continue
-        assert names <= public_names(JAX / rel), rel
+        assert names <= public_names(_source(rel)), rel
         assert not names & public_names(PORT / rel), rel
 
 
