@@ -6,9 +6,10 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``ka9q_sdr_tpu_torch/csrc``
-(one ``nvcc`` per source, all at once) and holds each against its plain
-PyTorch version: the FM forward fill (float, complex and conjugate-view
-values) and the hang AGC bit for bit, the column Stockham FFT within 2e-6
+(one ``nvcc`` per source, all at once, with the IF-node helper
+``cond.cu``) and holds each against its plain PyTorch version: the FM
+forward fill (float, complex and conjugate-view values) and the hang AGC
+bit for bit, the column Stockham FFT within 2e-6
 for every Q from 1 to 16384 (and against numpy).  It times each at the
 main path's shapes beside its bound (bytes over 3.35 TB/s), the AGC also
 beside its chain floor (its step's three dependent instructions at 4
@@ -91,7 +92,15 @@ drives the channel bank through its user entry points:
   of ``bench.py``) at its defaults in a subprocess: its rows printed, one
   result line naming this card, every default row with the fill or AGC
   kernel launched as its path needs, and its FM+PL 4096 serving row
-  within 15% of the captured scan timed above.
+  within 15% of the captured scan timed above;
+- the two gates of the JAX package's ``lax.cond``, IF nodes of the
+  captured graphs (``utils/graphs.py`` ``cond``, ``csrc/cond.cu``): the
+  versions they need printed; a 36-block FM+PL 4096 scan (two firings of
+  the PL measurement) bit-equal to the blocks replayed one at a time and
+  to the eager twin; ``torch.profiler`` kernel counts showing the 16384-
+  point rFFT on the due replay only and no acquisition FFT in 40 blocks
+  of a 256-channel CAM bank whose every channel has locked; and each
+  gate's cost, a due block against a not-due one.
 
 Times come from CUDA events.  Phases print their
 findings line by line.
@@ -3275,6 +3284,266 @@ def phase_bench(smi, scan_ms):
               f"captured scan {scan_ms:.4f} [{smi}]")
 
 
+#: phase 33: the captured scan's blocks (36 = two firings of every FM
+#: channel's PL measurement, at blocks 17 and 35); the CAM bank's blocks
+#: before it must be locked, the locked blocks profiled (one acquisition
+#: ring period is 35), and its carriers' level and the noise's; the calls
+#: timed per due and per not-due block; the blocks of the runner's CAM
+#: inputs whose searches are counted
+GATE_SCAN, GATE_CAM_MAX, GATE_LOCKED = 36, 260, 40
+GATE_RUNNER_BLOCKS = 80
+GATE_CAM_AMP, GATE_CAM_NOISE, GATE_ITERS = 0.01, 0.003, 10
+
+
+def kernel_counts(fn, setup=None):
+    """{kernel name: launches} on the card while fn() runs, from
+    torch.profiler (graph replays included: CUPTI sees each kernel node);
+    setup() runs before, outside the profile.  Records of replays made
+    outside a profile can reach the next one, so an empty profile takes
+    them in first.  A profile that recorded no kernel lost its records
+    (fn always launches) and is taken again."""
+    from collections import Counter
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        if setup is not None:
+            setup()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = Counter(e.name for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        if out:
+            return out
+        print("  (the profile recorded no kernel: profiled again)",
+              flush=True)
+    return out
+
+
+def _body_check(label, fft, due, notdue, window=None, n_window=0):
+    """A gated body's kernels, a due replay's launches less a not-due
+    one's: they hold an FFT kernel whose name holds `fft`, which the
+    not-due replay launches no time where `window` is None; a `window` of
+    n_window replays, none due, launches it n_window times what the
+    not-due replay did (the kernel may serve another FFT of the step too).
+    Prints the body's kernels and counts."""
+    body = due - notdue
+    print(f"  {label}: {sum(due.values())} kernels a due replay, "
+          f"{sum(notdue.values())} a not-due one" + (
+              f", {sum(window.values())} in {n_window} replays none of which"
+              f" is due" if window is not None else "")
+          + "; the difference, per kernel: due, not due" + (
+              f", {n_window} replays" if window is not None else ""),
+          flush=True)
+    ffts = [n for n in body if "fft" in n and fft in n]
+    for name, n in sorted(body.items()):
+        extra = f", {window[name]}" if window is not None else ""
+        print(f"    {name[:110]}: +{n}; {due[name]}, {notdue[name]}{extra}",
+              flush=True)
+    if window is None:
+        return bool(ffts) and all(notdue[n] == 0 for n in ffts)
+    return bool(ffts) and all(window[n] == n_window * notdue[n]
+                              for n in ffts)
+
+
+def _cam_all_block(b, L, fs, freqs, dev):
+    """Block b of a CAM bank's input with an unmodulated carrier on every
+    channel (offsets of -120..120 PLL bins, 7 apart), low noise; made on
+    the device from the seed."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 33 + b)
+    n = b * L + torch.arange(L, device=dev, dtype=torch.float64)
+    x = GATE_CAM_NOISE * torch.randn((L, 2), generator=g, device=dev,
+                                     dtype=torch.float64)
+    offs = torch.as_tensor([((7 * c) % 241 - 120) * PLL_BIN
+                            for c in range(len(freqs))], device=dev,
+                           dtype=torch.float64)
+    f = torch.as_tensor(freqs, device=dev, dtype=torch.float64) + offs
+    for i in range(0, len(freqs), 32):
+        cyc = torch.frac(n[None, :] * (f[i:i + 32, None] / fs))
+        x[:, 0] += GATE_CAM_AMP * torch.cos(2 * np.pi * cyc).sum(0)
+        x[:, 1] += GATE_CAM_AMP * torch.sin(2 * np.pi * cyc).sum(0)
+    return torch.clamp(x * 32767.0, -32768, 32767).to(torch.int16)
+
+
+def _due_ms(bank, field, due, notdue, x):
+    """Device ms of one block by spin-padded CUDA events, with the gate's
+    counter (`field` of the demod state) set in place so the block is due
+    or not: (due ms, not-due ms), in turns."""
+    counter = getattr(bank._state.demod, field)
+
+    def run(v):
+        return lambda: (counter.fill_(v), bank.process_i16_pcm(x))
+
+    d1, n1 = device_ms(run(due), GATE_ITERS), device_ms(run(notdue),
+                                                        GATE_ITERS)
+    n2, d2 = device_ms(run(notdue), GATE_ITERS), device_ms(run(due),
+                                                           GATE_ITERS)
+    return (d1 + d2) / 2, (n1 + n2) / 2
+
+
+def phase_gates(bank_mod, demod_fm, freqs, smi):
+    """The JAX package's two lax.cond gates as IF nodes of the captured
+    graphs: the PL measurement and the PLL acquisition run only on blocks
+    where a channel is due."""
+    print("phase 33: gated PL and PLL acquisition (conditional nodes in "
+          "the captured graphs)", flush=True)
+    driver = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, driver "
+          f"{driver}; torch binds begin_capture_to_if_node: "
+          f"{hasattr(torch.cuda.CUDAGraph, 'begin_capture_to_if_node')}; "
+          "the port's IF nodes: csrc/cond.cu (cudaGraphConditionalHandle"
+          "Create, cudaGraphAddNode, cudaStreamBeginCaptureToGraph)",
+          flush=True)
+    n_ch, L, M = SERVE["n_channels"], SERVE["L"], SERVE["M"]
+    cfg = bank_mod.make_bank_config(n_ch, "FM", samprate=FS, L=L, M=M,
+                                    enable_pl=True)
+    xs = torch.stack([make_block(b, L, freqs, SIGNAL, NO_PL, DEV)
+                      for b in range(GATE_SCAN)])
+    scan = bank_mod.ChannelBank(cfg, freqs, device=DEV)
+    single = bank_mod.ChannelBank(cfg, freqs, device=DEV)
+    eager = bank_mod.ChannelBank(cfg, freqs, device=DEV, capture=False)
+    got = scan.process_scan_i16(xs, pcm_out=True)
+    one = torch.stack([single.process_i16_pcm(x)[0] for x in xs])
+    twin = torch.stack([eager.process_i16_pcm(x)[0] for x in xs])
+    check(torch.equal(got, one) and torch.equal(got, twin)
+          and _bit_equal(scan.state, single.state)
+          and _bit_equal(scan.state, eager.state),
+          f"FM+PL {n_ch} ch: a {GATE_SCAN}-block captured scan, the blocks "
+          f"replayed one at a time and the eager gated twin are bit-equal, "
+          f"PCM and state")
+    check(scan.graphs[0].replays == 1
+          and single.graphs[0].replays == GATE_SCAN,
+          f"one replay for the scan ({GATE_SCAN} IF nodes in its graph), "
+          f"one a block for the single steps")
+    k = cfg.L_dec // demod_fm.PL_DECIMATE
+    every = -(-demod_fm.PL_FFT_INTERVAL // k)
+    pl = scan.state.demod.plfreq.cpu().numpy()
+    tones = [float(pl[c]) for c in SIGNAL if c not in NO_PL]
+    left = (GATE_SCAN % every) * k
+    check(all(abs(t - 100.0) < 2.0 for t in tones)
+          and (scan.state.demod.pl_counter == left).all().item(),
+          f"the PL measurement ran inside the scan (1 block in {every}): "
+          f"plfreq {tones} Hz on the PL channels, every counter at {left}")
+    del got, one, twin, scan, eager
+
+    # the rFFT's kernels only on the due block
+    counter = single._state.demod.pl_counter
+    x = xs[0]
+    notdue = kernel_counts(lambda: single.process_i16_pcm(x),
+                           lambda: counter.fill_(0))
+    due = kernel_counts(lambda: single.process_i16_pcm(x),
+                        lambda: counter.fill_(demod_fm.PL_FFT_INTERVAL - k))
+    check(_body_check(f"FM+PL {n_ch} ch, the (B, 16384) rFFT", "16384",
+                      due, notdue),
+          "the 16384-point rFFT's kernels run on the due replay only")
+    d_ms, n_ms = _due_ms(single, "pl_counter",
+                         demod_fm.PL_FFT_INTERVAL - k, 0, x)
+    print(f"  FM+PL {n_ch} ch, 20 ms: due block {d_ms:.3f} ms, not due "
+          f"{n_ms:.3f} ms; the PL measurement {d_ms - n_ms:.3f} ms, 1 block "
+          f"in {every}: {(d_ms - n_ms) / every:.3f} ms/block amortised, "
+          f"{n_ms + (d_ms - n_ms) / every:.3f} ms/block on average [{smi}]",
+          flush=True)
+    del single, xs, x
+    torch.cuda.empty_cache()
+
+    lcfg = bank_mod.make_bank_config(LONG["n_channels"], "FM", samprate=FS,
+                                     L=LONG["L"], M=LONG["M"], enable_pl=True)
+    long_bank = bank_mod.ChannelBank(lcfg, bank_freqs(LONG["n_channels"]),
+                                     device=DEV)
+    x = make_block(0, LONG["L"], long_bank.freqs, LONG_SIGNAL, (), DEV)
+    k = lcfg.L_dec // demod_fm.PL_DECIMATE
+    d_ms, n_ms = _due_ms(long_bank, "pl_counter",
+                         demod_fm.PL_FFT_INTERVAL - k, 0, x)
+    every = -(-demod_fm.PL_FFT_INTERVAL // k)
+    print(f"  FM+PL {LONG['n_channels']} ch, long block: due block "
+          f"{d_ms:.3f} ms, not due {n_ms:.3f} ms; the PL measurement "
+          f"{d_ms - n_ms:.3f} ms, 1 block in {every}: "
+          f"{(d_ms - n_ms) / every:.3f} ms/block amortised, "
+          f"{n_ms + (d_ms - n_ms) / every:.3f} ms/block on average [{smi}]",
+          flush=True)
+    del long_bank, x
+    torch.cuda.empty_cache()
+
+    # CAM 4096: the acquisition's cost on a due block (unlocked bank)
+    ccfg = bank_mod.make_bank_config(n_ch, "CAM", samprate=FS, L=L, M=M)
+    cam = bank_mod.ChannelBank(ccfg, freqs, device=DEV)
+    x = make_am_block(0, L, FS, (), DEV)
+    ring_size = ccfg.demod_cfg.ring_size
+    d_ms, n_ms = _due_ms(cam, "fft_samples", ring_size, 0, x)
+    print(f"  CAM {n_ch} ch, 20 ms, no channel locked: due block {d_ms:.3f} "
+          f"ms, not due {n_ms:.3f} ms; the acquisition {d_ms - n_ms:.3f} ms "
+          f"[{smi}]", flush=True)
+    del cam, x
+    torch.cuda.empty_cache()
+
+    # how often the runner's CAM rows search: its input holds three
+    # carriers in noise (ka9q_sdr_tpu_torch.bench.bench_inputs)
+    from ka9q_sdr_tpu_torch.bench import bench_inputs
+    for rn, rfs, rL, rM in ((n_ch, FS, L, M), (2048, OTHER["samprate"],
+                                               OTHER["L"], OTHER["M"])):
+        rfreqs, rx = bench_inputs(rn, rfs, rL)
+        cam = bank_mod.ChannelBank(
+            bank_mod.make_bank_config(rn, "CAM", samprate=rfs, L=rL, M=rM),
+            rfreqs, device=DEV)
+        rx = torch.as_tensor(rx, device=DEV)
+        fired = []
+        for b in range(GATE_RUNNER_BLOCKS):
+            cam.process_i16(rx)
+            if (cam.state.demod.fft_samples == 0).any().item():
+                fired.append(b)
+        print(f"  the runner's CAM {rn} ch x {rfs / 1e6:g} Msps input: the "
+              f"search ran on blocks {fired} of {GATE_RUNNER_BLOCKS}; "
+              f"{int(cam.state.demod.pll_lock.sum())} channels locked",
+              flush=True)
+        del cam, rx
+    torch.cuda.empty_cache()
+
+    # a CAM bank whose every channel locks: no acquisition once locked
+    ofs, oL = OTHER["samprate"], OTHER["L"]
+    ofreqs = _other_freqs()
+    cam = _other_bank(bank_mod, "CAM", ofreqs)
+    on = cam.cfg.n_channels
+    lc = cam.cfg.demod_cfg
+    # no channel locked yet: a ring 30 samples in is not due, a full one is
+    samples = cam._state.demod.fft_samples
+    x = _cam_all_block(0, oL, ofs, ofreqs, DEV)
+    cam.process_i16_pcm(x)          # its capture, outside the profiles
+    notdue = kernel_counts(lambda: cam.process_i16_pcm(x),
+                           lambda: samples.fill_(0))
+    due = kernel_counts(lambda: cam.process_i16_pcm(x),
+                        lambda: samples.fill_(lc.ring_size))
+    b, t0 = 1, time.perf_counter()
+    while b < GATE_CAM_MAX and not cam.state.demod.pll_lock.all().item():
+        cam.process_i16_pcm(_cam_all_block(b, oL, ofs, ofreqs, DEV))
+        b += 1
+    locked_at = b
+    check(cam.state.demod.pll_lock.all().item(),
+          f"CAM {on} ch at {ofs / 1e6:g} Msps, a carrier on every channel: "
+          f"all locked after {locked_at} blocks "
+          f"({time.perf_counter() - t0:.1f} s, signal generation included)")
+    xs = [_cam_all_block(b, oL, ofs, ofreqs, DEV)
+          for b in range(locked_at, locked_at + GATE_LOCKED)]
+
+    def locked_run():
+        for x in xs:
+            cam.process_i16_pcm(x)
+
+    window = kernel_counts(locked_run)
+    still = cam.state.demod.pll_lock.all().item()
+    check(_body_check(f"CAM {on} ch, the ({on}, {lc.ring_size}) "
+                      "acquisition FFT", str(lc.ring_size), due, notdue,
+                      window, GATE_LOCKED) and still,
+          f"the locked bank launches no acquisition FFT in {GATE_LOCKED} "
+          f"blocks (still locked after them: {still})")
+    del cam, xs
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -3285,6 +3554,7 @@ def main():
         from ka9q_sdr_tpu_torch.io import modulate
         from ka9q_sdr_tpu_torch.models import bank as bank_mod
         from ka9q_sdr_tpu_torch.models import receiver
+        from ka9q_sdr_tpu_torch.models import demod_fm
         from ka9q_sdr_tpu_torch.models.demod_fm import _pl_measure
         from ka9q_sdr_tpu_torch.models.demod_linear import _acquire
         from ka9q_sdr_tpu_torch.ops import _kernels, agc, ffill, iir, pstock
@@ -3313,7 +3583,7 @@ def main():
           flush=True)
     print(f"  nvidia-smi: {smi}", flush=True)
     t0 = time.perf_counter()
-    libs = _kernels.load_all(["ffill", "agc", "pstock"])
+    libs = _kernels.load_all(["ffill", "agc", "pstock", "cond"])
     print(f"  kernels built in parallel, {time.perf_counter() - t0:.2f} s",
           flush=True)
     for name, kl in libs.items():
@@ -3386,15 +3656,17 @@ def main():
         ring = torch.randn((n_ch, 16384), device=DEV)
         prev = torch.full((n_ch,), float("nan"), device=DEV)
         ms = cuda_ms(lambda: _pl_measure(fm, ring, prev), 20)
-        print(f"  always-on PL measurement (16k rFFT + peak pick) at "
-              f"({n_ch}, 16384): {ms:.3f} ms/block [{smi}]", flush=True)
+        print(f"  PL measurement (16k rFFT + peak pick; only on blocks "
+              f"where a channel is due) at ({n_ch}, 16384): {ms:.3f} ms "
+              f"[{smi}]", flush=True)
     lc = cam_bank.cfg.demod_cfg
     ring = torch.randn((SERVE["n_channels"], lc.ring_size),
                        dtype=torch.complex64, device=DEV)
     ms = cuda_ms(lambda: _acquire(lc, ring), 20)
-    print(f"  always-on PLL acquisition ({lc.ring_size}-point FFT + search) "
-          f"at ({SERVE['n_channels']}, {lc.ring_size}): {ms:.3f} ms/block "
-          f"[{smi}]", flush=True)
+    print(f"  PLL acquisition ({lc.ring_size}-point FFT + search; only on "
+          f"blocks where an unlocked channel is due) at "
+          f"({SERVE['n_channels']}, {lc.ring_size}): {ms:.3f} ms [{smi}]",
+          flush=True)
     del cam_bank
 
     phase_multibank(bank_mod, ffill, agc, smi)
@@ -3441,6 +3713,7 @@ def main():
                          cards=True)
         phase_notch_entry(iir, dryrun, bank_mod, ffill, smi)
         phase_bench(smi, fm_scan_ms)
+        phase_gates(bank_mod, demod_fm, freqs, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

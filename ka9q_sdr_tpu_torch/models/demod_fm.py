@@ -13,10 +13,10 @@ Pipeline per block (fm.c:72-174):
    feeding a 300 Hz - 6 kHz de-emphasis slave (fm.c:51-67), and the PL-tone
    measurement slave with its 16k-point rFFT (pltask, fm.c:189-285).
 
-The JAX package gates the PL rFFT with ``lax.cond(any(do_fft))``; in eager
-PyTorch that test would stall the host on the device every block.  Here the
-measurement is computed every block and selected per channel with
-``torch.where(do_fft, ...)``: the same result, and nothing synchronises.
+The PL rFFT runs only on blocks where some channel is due, behind
+``utils.graphs.cond(any(do_fft))`` as the JAX package's ``lax.cond``: in a
+captured step that is a conditional node the device resolves, so nothing
+synchronises; the eager step on a card reads the test on the host.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from ..ops.fftfilt import (
 )
 from ..ops.ffill import forward_fill
 from ..ops.window import window_rfilter
+from ..utils.graphs import cond
 
 __all__ = ["FMConfig", "FMState", "fm_init", "fm_demod"]
 
@@ -277,7 +278,7 @@ def fm_demod(
             resp = torch.as_tensor(cfg.audio_response, device=dev)
             audio = slave_execute(cfg.audio_slave, afdomain, resp) * cfg.gain
 
-    # PL tone measurement (pltask, fm.c:233-277), selected per channel
+    # PL tone measurement (pltask, fm.c:233-277)
     pl_ring, pl_counter, plfreq = state.pl_ring, state.pl_counter, state.plfreq
     if cfg.pl_slave is not None:
         pl_samples = slave_execute(
@@ -287,7 +288,16 @@ def fm_demod(
         pl_ring = torch.cat([pl_ring[..., k:], pl_samples], dim=-1)
         pl_counter = pl_counter + k
         do_fft = pl_counter >= PL_FFT_INTERVAL
-        plfreq = torch.where(do_fft, _pl_measure(cfg, pl_ring, plfreq), plfreq)
+        # The 16k FFT runs 1 block in ~17 (fm.c:251-253): a scalar cond
+        # over the batch skips the whole batched FFT on the other blocks,
+        # and per-channel do_fft picks which channels take the measurement.
+        plfreq = cond(
+            do_fft.any(),
+            lambda r: torch.where(do_fft, _pl_measure(cfg, r, plfreq),
+                                  plfreq),
+            lambda r: plfreq,
+            pl_ring,
+        )
         pl_counter = torch.where(do_fft, torch.zeros_like(pl_counter),
                                  pl_counter)
 

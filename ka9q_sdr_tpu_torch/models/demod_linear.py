@@ -16,11 +16,11 @@ Per block (linear.c:114-310):
 3. A post-AGC frequency shift for the CW offset (linear.c:283-289).
 4. Mono output = I; stereo = (I, Q) (linear.c:291-300).
 
-The JAX package gates the acquisition FFT with ``lax.cond(any(do_fft))``;
-in eager PyTorch that test would stall the host on the device every block.
-Here ``_acquire`` runs every block and its result is selected per channel
-with ``torch.where(do_fft, ...)``: the same result, and nothing
-synchronises.  The cost is one (B, ring_size) FFT per block.
+The acquisition FFT runs only on blocks where some unlocked channel's ring
+is due, behind ``utils.graphs.cond(any(do_fft))`` as the JAX package's
+``lax.cond``: a locked bank never runs it.  In a captured step the test is
+a conditional node the device resolves (the lock state never leaves the
+card); the eager step on a card reads it on the host.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ import torch
 from ..ops.agc import AGCParams, AGCState, agc_block, agc_init
 from ..ops.decimate import cascade_init, hb_cascade
 from ..ops.nco import OscState, osc_block, osc_init, set_osc, set_osc_traced
+from ..utils.graphs import cond
 
 __all__ = ["LinearConfig", "LinearState", "linear_init", "linear_demod"]
 
@@ -241,12 +242,21 @@ def _pll_block(cfg: LinearConfig, state: LinearState, baseband: torch.Tensor):
                                        torch.zeros_like(state.pll_lock),
                                        state.pll_lock))
 
-    # Reacquisition (linear.c:173-201): computed every block, selected per
-    # channel (module docstring)
+    # Reacquisition (linear.c:173-201).  The search FFT is needed at most
+    # 1 block in ring_size/(2n) and never once locked: a scalar cond over
+    # the batch skips the whole batched FFT on the other blocks.
     do_fft = (~pll_lock) & (fft_samples > cfg.ring_size // 2)
-    acq_df, acq_found = _acquire(cfg, ring)
-    new_df = torch.where(do_fft, acq_df, state.delta_f)
-    found = do_fft & acq_found
+
+    def _run_acquire(r):
+        acq_df, acq_found = _acquire(cfg, r)
+        return torch.where(do_fft, acq_df, state.delta_f), do_fft & acq_found
+
+    new_df, found = cond(
+        do_fft.any(),
+        _run_acquire,
+        lambda r: (state.delta_f, torch.zeros_like(do_fft)),
+        ring,
+    )
     changed = found & (new_df != state.delta_f)
     delta_f = torch.where(changed, new_df, state.delta_f)
     integrator = torch.where(changed, torch.zeros_like(state.integrator),

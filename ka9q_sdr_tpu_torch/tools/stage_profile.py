@@ -6,16 +6,19 @@ Stages (cumulative prefixes of ``bank_step_i16``, models/bank.py):
   master      i16 ingest + gain + master FFT (ops/fftfilt master_execute)
   chan        + bank_recenter + bank_channelize (gather, response, phase,
               batched IFFT, NCO)
-  full        + FM demod with the PL chain (models/demod_fm.py)
+  full        + FM demod with the PL chain (models/demod_fm.py), on a
+              block where no PL measurement is due, captured as the banks
+              run it (the state written back unchanged, so every call is
+              the same block)
 
 Isolated components inside the demod delta:
   fills       the two forward fills at (B, L_dec) (the csrc/ffill.cu
               kernel on the card)
   pl_ring     the PL ring shift-concat at (B, PL_FFT_SIZE)
   pl_fft      one PL measurement (rFFT + peak pick, ``_pl_measure``) at
-              (B, PL_FFT_SIZE); the port runs it every block,
-              pl_fft_amortised is what it costs where it runs only on the
-              blocks it fires on (the fire fraction min(1, k / 512))
+              (B, PL_FFT_SIZE), which runs only on the blocks where a
+              channel is due; pl_fft_amortised is its cost a block: it
+              runs 1 block in ceil(512 / k)
 
 The receiver's front end at the same block (models/receiver.py), ``front``:
   front_nco   the second LO and Doppler NCO ramps over L samples, mixed in
@@ -53,6 +56,7 @@ from ..models.receiver import (make_receiver_config, mix_second_lo, psd128,
 from ..ops.fftfilt import master_execute
 from ..ops.ffill import forward_fill_multi
 from ..ops.nco import osc_init, set_osc
+from ..utils.graphs import StepGraphs
 from ..utils.runtime import configure_torch
 
 __all__ = ["main", "fm_block"]
@@ -142,7 +146,14 @@ def main(argv=None) -> int:
     if "chan" in stages:
         res["chan_ms"] = ms(channelize)
     if "full" in stages:
-        res["full_ms"] = ms(lambda: bank_step_i16(dcfg, state, x))
+        # eager, the PL gate would read its predicate on the host
+        steps = StepGraphs(dev)
+
+        def full(s):
+            bank_step_i16(dcfg, s, x)
+            return s, ()
+
+        res["full_ms"] = ms(lambda: steps.run("full", full, state, ()))
     if "fills" in stages:
         # the two shared-mask fills of fm_demod, ~all-strong mask (clean
         # carriers; the kernel's cost does not depend on the mask)
@@ -165,7 +176,7 @@ def main(argv=None) -> int:
                                                  dim=-1))
         res["pl_fft_ms"] = ms(lambda: demod_fm._pl_measure(dcfg.demod_cfg,
                                                            ring, prev))
-        fire = min(1.0, k / demod_fm.PL_FFT_INTERVAL)
+        fire = 1.0 / -(-demod_fm.PL_FFT_INTERVAL // k)
         res["pl_fft_amortised_ms"] = res["pl_fft_ms"] * fire
     if "front" in stages:
         rcfg = make_receiver_config("FM", samprate=int(fs), L=L, M=args.M)

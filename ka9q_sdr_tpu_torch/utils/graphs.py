@@ -20,7 +20,10 @@ at its first call, as the JAX wrappers jit lazily, and replayed once per
 call after that (the first call replays too).  Before the capture the step
 runs once on the capture stream with its results dropped: that creates the
 cuFFT plans, builds and loads the kernel libraries and makes every first
-launch and allocation happen outside the capture.  The graphs of one
+launch and allocation happen outside the capture.  A ``cond`` in the step
+(the port's ``lax.cond``) runs both of its branches in that warm-up and
+becomes a conditional node of the graph, which the device resolves on
+each replay.  The graphs of one
 ``StepGraphs`` share one memory pool; that is safe because the only
 tensors live across replays are the state and the static inputs (allocated
 outside the pool) and each replay's outputs are cloned on the same stream
@@ -40,6 +43,7 @@ and the capture's own are taken back out; so ``ops.ffill.launches`` and
 
 from __future__ import annotations
 
+import ctypes
 import gc
 import threading
 import time
@@ -48,11 +52,15 @@ from typing import Callable, NamedTuple
 import torch
 
 __all__ = ["StepGraphs", "write_state", "clone_tree", "static_copy", "scan",
-           "tree_leaves"]
+           "cond", "tree_leaves"]
 
 #: CUDA allows one stream capture at a time in a process; the daemons that
 #: share one (``chip_smoke.py`` runs several on threads) take turns here.
 _CAPTURE_LOCK = threading.Lock()
+
+#: ``ctx``: the ``_Capture`` that ``StepGraphs._capture`` runs on this
+#: thread (its warm-up, then its capture), which ``cond`` reads
+_CAPTURE = threading.local()
 
 
 def tree_leaves(tree) -> list:
@@ -144,6 +152,124 @@ def scan(step: Callable, state, xs: torch.Tensor):
     return state, out
 
 
+def _zip_map(fn, a, b):
+    """fn(x, y) on the tensor leaves of two trees of one structure."""
+    if isinstance(a, torch.Tensor):
+        return fn(a, b)
+    if isinstance(a, tuple):
+        out = [_zip_map(fn, x, y) for x, y in zip(a, b)]
+        return type(a)(*out) if hasattr(a, "_fields") else tuple(out)
+    if isinstance(a, list):
+        return [_zip_map(fn, x, y) for x, y in zip(a, b)]
+    if isinstance(a, dict):
+        return {k: _zip_map(fn, a[k], b[k]) for k in a}
+    return a
+
+
+def cond(pred: torch.Tensor, true_fn: Callable, false_fn: Callable,
+         *operands):
+    """``lax.cond``: true_fn(*operands) where the 0-d bool `pred` holds,
+    else false_fn(*operands); both return trees of one structure, shapes
+    and dtypes.
+
+    - On the CPU: a Python ``if``, as ``lax.cond`` runs there.
+    - On a card, inside a ``StepGraphs`` capture: an IF node of the graph
+      on the device value of `pred` (``csrc/cond.cu``), so a replay runs
+      true_fn's kernels only where it holds and the host never reads it.
+      The outputs are a copy of false_fn's, made before the node (both of
+      the port's gates return the carried state there); the node runs
+      true_fn and copies its results over them.  Needs CUDA 12.4 (runtime
+      and driver).  No hand kernel may launch inside true_fn: a replay
+      adds its capture's launches to the counters whether or not the node
+      ran, so one inside the node would be over-counted (this raises).
+    - On a card, during a capture's warm-up run: both branches, selected
+      with ``torch.where``, so true_fn's cuFFT plans and first allocations
+      are made outside the capture whichever way the warm-up block goes.
+    - On a card, eager (``capture=False``): `pred` is read on the host, one
+      synchronisation per call."""
+    if pred.dim() != 0 or pred.dtype != torch.bool:
+        raise ValueError(f"cond needs a 0-d bool predicate, not "
+                         f"{tuple(pred.shape)} {pred.dtype}")
+    cap = getattr(_CAPTURE, "ctx", None)
+    if pred.device.type == "cuda":
+        if torch.cuda.is_current_stream_capturing():
+            return _cond_node(cap, pred, true_fn, false_fn, operands)
+        if cap is not None:                         # the warm-up
+            _cond_lib(cap.device)       # its module loads outside a capture
+            return _zip_map(lambda t, f: torch.where(pred, t, f),
+                            true_fn(*operands), false_fn(*operands))
+    return true_fn(*operands) if bool(pred) else false_fn(*operands)
+
+
+class _Capture:
+    """A ``StepGraphs`` capture in progress on this thread."""
+
+    def __init__(self, device: int, pool, body):
+        self.device = device
+        self.pool = pool            # the graph's private memory pool
+        self.body = body            # the stream IF bodies are captured on
+        self.routed = False         # this thread's allocations -> pool
+
+
+_COND_READY: set = set()
+
+
+def _cond_lib(device: int):
+    """csrc/cond.cu, loaded, with its kernel's module loaded on `device`."""
+    from ..ops import _kernels
+
+    lib = _kernels.load("cond").lib
+    if lib.cond_if_begin.argtypes is None:
+        lib.cond_if_begin.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                      ctypes.c_void_p, ctypes.c_void_p]
+        lib.cond_if_end.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.cond_error.restype = ctypes.c_char_p
+    if device not in _COND_READY:
+        _cond_check(lib, lib.cond_init(device), "loading the IF-node kernel")
+        _COND_READY.add(device)
+    return lib
+
+
+def _cond_check(lib, err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"cond: {what} failed: "
+                           f"{lib.cond_error(err).decode()} ({err})")
+
+
+def _cond_node(cap, pred, true_fn, false_fn, operands):
+    """cond inside `cap`: one IF node on `pred`.  (PyTorch's own pattern,
+    torch/_higher_order_ops/cudagraph_conditional_nodes.py, pairs two IF
+    nodes for an else branch; a false branch that computes nothing needs
+    no node.)"""
+    if cap is None:
+        raise RuntimeError("cond inside a stream capture needs StepGraphs "
+                           "to run the capture")
+    lib = _cond_lib(cap.device)
+    out = clone_tree(false_fn(*operands))
+    if not cap.routed:
+        # the graph routes to its pool only what its own capture allocates,
+        # and a body is a capture of its own: route the thread instead
+        # (the graph's capture_end ends this routing)
+        torch._C._cuda_endAllocateToPool(cap.device, cap.pool)
+        torch._C._cuda_beginAllocateCurrentThreadToPool(cap.device, cap.pool)
+        torch._C._cuda_releasePool(cap.device, cap.pool)   # one use, not two
+        cap.routed = True
+    before = _counts()
+    stream = torch.cuda.current_stream(pred.device).cuda_stream
+    _cond_check(lib, lib.cond_if_begin(cap.device, stream, pred.data_ptr(),
+                                       cap.body.cuda_stream), "an IF node")
+    try:
+        with torch.cuda.stream(cap.body):
+            _zip_map(lambda o, r: o.copy_(r), out, true_fn(*operands))
+    finally:
+        _cond_check(lib, lib.cond_if_end(cap.device, cap.body.cuda_stream),
+                    "the IF body's capture")
+    if _counts() != before:
+        raise RuntimeError("a hand kernel launched inside a conditional "
+                           "node would be counted on every replay")
+    return out
+
+
 def _counters() -> tuple:
     from ..ops import agc, ffill, pstock
 
@@ -189,6 +315,7 @@ class StepGraphs:
         self.capture_s = 0.0        # warm-up + capture time so far
         self._pool = None
         self._stream = None
+        self._body = None           # the stream cond's IF bodies capture on
 
     def clear(self) -> None:
         self.graphs.clear()
@@ -240,25 +367,32 @@ class StepGraphs:
             before = _counts()
             cur = torch.cuda.current_stream(self.device)
             self._stream.wait_stream(cur)
-            with torch.cuda.stream(self._stream):
-                (warmup or fn)(state, *static_in)      # results dropped
-            cur.wait_stream(self._stream)
-            warm = _counts()
-            graph = torch.cuda.CUDAGraph()
-            # a collection inside the capture could free another wrapper's
-            # graph, whose teardown a capture forbids: it would invalidate
-            # this one
-            collecting = gc.isenabled()
-            gc.disable()
+            if self._body is None:
+                self._body = torch.cuda.Stream(self.device)
+            _CAPTURE.ctx = _Capture(torch.cuda.current_device(), self._pool,
+                                    self._body)
             try:
-                with torch.cuda.graph(graph, pool=self._pool,
-                                      stream=self._stream,
-                                      capture_error_mode="thread_local"):
-                    new, out = fn(state, *static_in)
-                    write_state(state, new)
+                with torch.cuda.stream(self._stream):
+                    (warmup or fn)(state, *static_in)  # results dropped
+                cur.wait_stream(self._stream)
+                warm = _counts()
+                graph = torch.cuda.CUDAGraph()
+                # a collection inside the capture could free another
+                # wrapper's graph, whose teardown a capture forbids: it
+                # would invalidate this one
+                collecting = gc.isenabled()
+                gc.disable()
+                try:
+                    with torch.cuda.graph(graph, pool=self._pool,
+                                          stream=self._stream,
+                                          capture_error_mode="thread_local"):
+                        new, out = fn(state, *static_in)
+                        write_state(state, new)
+                finally:
+                    if collecting:
+                        gc.enable()
             finally:
-                if collecting:
-                    gc.enable()
+                _CAPTURE.ctx = None
             launches = tuple(a - b for a, b in zip(_counts(), warm))
             _set_counts(before)
             g = _Graph(graph, fn, static_in, out, _ptrs(state), launches)

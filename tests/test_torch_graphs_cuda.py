@@ -14,6 +14,10 @@ same kernels in the same order.  It also checks one replay per call, the
 kernel launch counts per replay, and that what a call returned survives
 the replays that follow.  Geometry as tests/test_torch_graphs.py (8
 channels at 1.536 Msps, L = 30720, M = 34817; the receiver at 192 kHz).
+The ``graphs.cond`` cases hold its IF node to the eager branch, a 40-block
+FM+PL scan (two PL firings) to single replays and the eager twin, and a
+MultiBank re-commissioning an FM row to its eager twin past the first
+carrier search.
 """
 
 import gc
@@ -213,3 +217,96 @@ def test_capture_holds_off_the_collector(card):
     assert seen == [True, False] and g.replays == 2
     assert torch.equal(out[0], torch.full((4,), 2.0, device=card))
     assert torch.equal(state[0], torch.full((4,), 2.0, device=card))
+
+
+@pytest.mark.cuda
+def test_cond_node_runs_the_branch_the_device_picks(card):
+    """``graphs.cond`` in a captured step: one IF node that the device
+    resolves on each replay; the warm-up runs both branches, the capture
+    each once, a replay neither (no Python runs)."""
+    ran = {"true": 0, "false": 0}
+
+    def bump(c):
+        ran["true"] += 1
+        return c + 1.0, c * 2.0
+
+    def keep(c):
+        ran["false"] += 1
+        return c, torch.zeros_like(c)
+
+    def step(s, x):
+        n, twice = graphs.cond(x.sum() > 0, bump, keep, s[0])
+        return (n,), (twice,)
+
+    cap, eager = graphs.StepGraphs(card), graphs.StepGraphs(card, False)
+    s_c = (torch.zeros(3, device=card),)
+    s_e = (torch.zeros(3, device=card),)
+    signs = [1, -1, -1, 1, 1, -1, 1]
+    for sign in signs:
+        x = torch.full((4,), float(sign), device=card)
+        assert_bit_equal(cap.run("k", step, s_c, (x,)),
+                         eager.run("k", step, s_e, (x,)))
+        assert_bit_equal(s_c, s_e)
+    assert s_c[0].tolist() == [4.0] * 3 and cap.replays == len(signs)
+    # eager: one branch a call; the capture: warm-up both, capture both
+    # (the false branch makes the outputs' buffers), then replays only
+    assert ran == {"true": 2 + signs.count(1), "false": 2 + signs.count(-1)}
+
+
+@pytest.mark.cuda
+def test_cond_node_refuses_a_hand_kernel(card):
+    """A kernel counted inside an IF body would be counted on every
+    replay, taken or not: the capture raises."""
+    def step(s, x):
+        filled = graphs.cond(
+            x.any(), lambda v: ffill.forward_fill(v, x, s[0][..., 0]),
+            lambda v: v, s[0])
+        return s, (filled,)
+
+    g = graphs.StepGraphs(card)
+    state = (torch.zeros((2, 8), device=card),)
+    with pytest.raises(RuntimeError, match="conditional node"):
+        g.run("k", step, state, (torch.ones((2, 8), dtype=torch.bool,
+                                            device=card),))
+
+
+@pytest.mark.cuda
+def test_gated_scan_equals_single_replays(card):
+    """40 FM+PL blocks (the PL measurement fires at blocks 17 and 35) as
+    one captured scan (40 IF nodes), as 40 single replays and through the
+    eager twin: bit-equal, PCM and state."""
+    cfg = TB.make_bank_config(B, "FM", samprate=FS, L=LW, M=M,
+                              enable_pl=True)
+    scan = TB.ChannelBank(cfg, FREQS, device=card)
+    single = TB.ChannelBank(cfg, FREQS, device=card)
+    eager = TB.ChannelBank(cfg, FREQS, device=card, capture=False)
+    xs = np.stack(_blocks(40))
+    got = scan.process_scan_i16(xs, pcm_out=True)
+    one = torch.stack([single.process_i16_pcm(x)[0] for x in xs])
+    twin = torch.stack([eager.process_i16_pcm(x)[0] for x in xs])
+    assert torch.equal(got, one) and torch.equal(got, twin)
+    assert_bit_equal(scan.state, single.state)
+    assert_bit_equal(scan.state, eager.state)
+    assert scan.graphs[0].replays == 1 and single.graphs[0].replays == 40
+    # fired at blocks 17 and 35: four blocks' PL samples since
+    assert scan.state.demod.pl_counter.tolist() == [4 * 30] * B
+
+
+@pytest.mark.cuda
+def test_gated_multibank_through_init_channel(card):
+    """A MultiBank's FM+PL and CAM groups over 40 blocks, an FM row
+    re-commissioned at block 9 (its PL counter then runs out of step):
+    captured equal to eager bit for bit, the first search included."""
+    groups = [("FM", FREQS[:4]), ("CAM", FREQS[4:])]
+    kw = dict(samprate=FS, L=LW, M=M, enable_pl=True)
+    cap = TB.MultiBank(groups, device=card, **kw)
+    eager = TB.MultiBank(groups, device=card, capture=False, **kw)
+    for b, x in enumerate(_blocks(40)):
+        if b == 9:
+            for mb in (cap, eager):
+                mb.init_channel(0, 1, FREQS[1])
+        assert_bit_equal(cap.process_i16_pcm(x), eager.process_i16_pcm(x))
+        assert_bit_equal(cap.states, eager.states)
+    fm, cam = (s.demod for s in cap.states)
+    assert fm.pl_counter.tolist() == [120, 390, 120, 120]
+    assert (cam.fft_samples == 150).all()
