@@ -2642,6 +2642,7 @@ def phase_sharded(bank_mod, mesh_mod, ffill, agc, smi, freqs, cards=False):
             return make_am_block(b, L, FS, cam_carriers, DEV)
 
         worst, diff, launches = -1.0, 0.0, 0
+        r0 = _replays(sb)
         for b in range(SHARD_BLOCKS):
             x = block(b)
             k0 = kmod.launches
@@ -2659,6 +2660,11 @@ def phase_sharded(bank_mod, mesh_mod, ffill, agc, smi, freqs, cards=False):
         check(launches == per * MESH_D * SHARD_BLOCKS,
               f"{label} sharded: {kname} launches {launches} = "
               f"{launches / SHARD_BLOCKS:g} per block ({per} per shard)")
+        links = 3 if shard_fft else 1      # the shard_fft chain's graphs
+        replays = _replays(sb) - r0
+        check(replays == links * MESH_D * SHARD_BLOCKS,
+              f"{label} sharded: {replays / SHARD_BLOCKS:g} graph replays a "
+              f"block ({links} a shard)")
         x = block(0)
         if not shard_fft:       # the FM+PL case timed it already
             time_step(lambda: flat.process_i16_pcm(x), n_ch, L, FS,
@@ -2839,14 +2845,15 @@ def _replays(w):
 
 
 def _twins(label, make, block, step, edits, smi, scan=None,
-           iters=GRAPH_ITERS, busy=True):
+           iters=GRAPH_ITERS, busy=True, links=1):
     """A captured wrapper (make(True)) against its eager twin
     (make(False)): GRAPH_BLOCKS blocks through step(w, x) with `edits`
     ({block: (name, fn(w))}) between them, every output and the whole
-    state bit-equal after each block, one replay a block on each device;
-    `scan` = (blocks, run_scan(w, xs), run_single(w, x)): a scan on the
-    captured wrapper, one replay a device, bit-equal to the blocks stepped
-    one at a time on the twin.  Then ms/block of each by CUDA events (in
+    state bit-equal after each block, `links` replays a block on each
+    device (a shard_fft mesh's chain: 3); `scan` = (blocks, run_scan(w,
+    xs), run_twin(w, xs)): a scan on the captured wrapper, one replay a
+    device, bit-equal to run_twin on the twin.  Then ms/block of each by
+    CUDA events (in
     turns: eager, captured, captured, eager), device busy by device_ms,
     the capture time and the memory each holds (busy=False: not the
     busy time, for a mesh of several cards, where it is one per card)."""
@@ -2873,20 +2880,19 @@ def _twins(label, make, block, step, edits, smi, scan=None,
     check(not differ, f"{label}: captured = eager twin bit for bit, state "
           f"included, over {GRAPH_BLOCKS} blocks ({names}); blocks that "
           f"differ: {differ}")
-    check(set(replays) == {n_dev}, f"{label}: replays a block {replays} "
-          f"(one a device: {n_dev})")
+    check(set(replays) == {links * n_dev}, f"{label}: replays a block "
+          f"{replays} ({links} a device: {n_dev} device(s))")
     scan_ms = float("nan")
     if scan is not None:
-        xs, run_scan, run_single = scan
+        xs, run_scan, run_twin = scan
         r = _replays(cap)
         got = run_scan(cap, xs)
         n = _replays(cap) - r
-        want = torch.stack([run_single(eag, x) for x in xs])
+        want = run_twin(eag, xs)
         check(torch.equal(_bits(got), _bits(want)) and n == n_dev
               and _bit_equal(_state(cap), _state(eag)),
-              f"{label}: a {len(xs)}-block scan = {len(xs)} single eager "
-              f"steps bit for bit, state included; {n} replay(s) for the "
-              f"call")
+              f"{label}: a {len(xs)}-block scan = the eager twin's bit for "
+              f"bit, state included; {n} replay(s) for the call")
         del got, want
         scan_ms = cuda_ms(lambda: run_scan(cap, xs), 3) / len(xs)
         del xs
@@ -2938,10 +2944,14 @@ def _bank_edits(freqs, ch, low, high):
                              lambda w: w.set_filter(low, high))}
 
 
-def _bank_scan(block):
+def _bank_scan(block, single=True):
+    """A scan of GRAPH_SCAN blocks, held against the twin's single steps
+    (or, where those differ from a scan, as a shard_fft bank's
+    distributed FFT does, against the twin's scan)."""
     xs = torch.stack([block(GRAPH_BLOCKS + i) for i in range(GRAPH_SCAN)])
-    return (xs, lambda w, xs: w.process_scan_i16(xs, pcm_out=True),
-            lambda w, x: w.process_i16_pcm(x)[0])
+    run = lambda w, xs: w.process_scan_i16(xs, pcm_out=True)  # noqa: E731
+    return (xs, run, (lambda w, xs: torch.stack(
+        [w.process_i16_pcm(x)[0] for x in xs])) if single else run)
 
 
 def phase_graphs(bank_mod, receiver, modulate, mesh_mod, smi, freqs,
@@ -2967,18 +2977,20 @@ def phase_graphs(bank_mod, receiver, modulate, mesh_mod, smi, freqs,
     mesh = mesh_mod.make_channel_mesh(
         MESH_D if cards else None, devices=None if cards else [DEV] * MESH_D)
     where = f"{MESH_D} cards" if cards else f"{MESH_D} shards of the card"
-    for label, mode, block, (low, high) in (
-            ("FM+PL", "FM", fm_block, (-6000.0, 6000.0)),
+    for label, mode, block, (low, high), shard_fft in (
+            ("FM+PL", "FM", fm_block, (-6000.0, 6000.0), False),
+            ("FM+PL shard_fft", "FM", fm_block, (-6000.0, 6000.0), True),
             ("CAM", "CAM", lambda b: make_am_block(b, L, FS, cam_car, DEV),
-             (-3000.0, 3000.0))):
+             (-3000.0, 3000.0), False)):
         cfg = bank_mod.make_bank_config(n_ch, mode, samprate=FS, L=L, M=M,
                                         enable_pl=mode == "FM")
         ch = list(CAM_SIGNAL) if mode == "CAM" else SIGNAL
         _twins(f"{label} 4096 ch on {where}",
-               lambda c, cfg=cfg: bank_mod.ChannelBank(cfg, freqs, mesh=mesh,
-                                                       capture=c),
+               lambda c, cfg=cfg, sf=shard_fft: bank_mod.ChannelBank(
+                   cfg, freqs, mesh=mesh, shard_fft=sf, capture=c),
                block, pcm, _bank_edits(freqs, ch, low, high), smi,
-               scan=_bank_scan(block), iters=10, busy=not cards)
+               scan=_bank_scan(block, single=not shard_fft), iters=10,
+               busy=not cards, links=3 if shard_fft else 1)
     print(f"  summary (ms/block; {smi}): path | eager | captured | busy "
           "eager | busy captured | scan | capture s | captured wrapper MiB | "
           "eager twin MiB", flush=True)
@@ -3086,8 +3098,8 @@ def _graph_paths(bank_mod, receiver, modulate, smi, freqs, pcm, cam_car,
                                  lambda w, lo=low, hi=high:
                                  w.set_filter(lo, hi))},
                smi, scan=(x16, lambda w, xs: w.process_offline(xs),
-                          lambda w, x: w.process(
-                              bank_mod.iq_from_i16(x))[0]))
+                          lambda w, xs: torch.stack([w.process(
+                              bank_mod.iq_from_i16(x))[0] for x in xs])))
 
 
 
@@ -3544,6 +3556,143 @@ def phase_gates(bank_mod, demod_fm, freqs, smi):
     torch.cuda.empty_cache()
 
 
+#: phase 34: the long-block shard_fft bank's blocks held against the
+#: unsharded captured bank, the blocks held bit-equal to its eager twin
+#: (on 4 cards the check of the chain's order across blocks), the calls
+#: timed.  Block 0 is held on its signal channels only: there FM on a
+#: dozen noise channels turns the master FFT's float32 rounding into runs
+#: of samples 0.4 apart, as far for a second exact FFT of the same block
+#: (fft_fourstep in place of the 2^26 cuFFT) as for the distributed one
+#: (PERF.md §6)
+LONG_SHARD_BLOCKS, LONG_TWIN_BLOCKS, LONG_SHARD_ITERS = 6, 24, 6
+
+
+def _reserved(mesh):
+    """Bytes the caching allocator holds on the mesh's cards."""
+    cards = {torch.device(d).index or 0 for d in mesh.devices}
+    return sum(torch.cuda.memory_reserved(i) for i in cards)
+
+
+def phase_shard_fft_long(bank_mod, mesh_mod, demod_fm, ffill, smi,
+                         cards=False):
+    """The distributed-master-FFT bank at the long-block geometry (FM+PL
+    8192 ch, N = 2^26, 148 ms blocks), the geometry shard_fft exists for,
+    on MESH_D shards of the card (or, with `cards`, MESH_D cards), its step
+    a chain of three captured graphs a shard: LONG_SHARD_BLOCKS blocks
+    within 3e-5 / 1e-4 of the unsharded captured bank, with 2 fills and 3
+    replays a shard a block; LONG_TWIN_BLOCKS blocks bit-equal to the
+    eager twin; eager and captured ms/block by CUDA events beside the
+    unsharded bank's; the memory the captured bank holds; and a due and a
+    not-due block under torch.cuda.set_sync_debug_mode("error")."""
+    import gc
+
+    n_ch, L, M = LONG["n_channels"], LONG["L"], LONG["M"]
+    mesh = mesh_mod.make_channel_mesh(
+        MESH_D if cards else None, devices=None if cards else [DEV] * MESH_D)
+    where = f"{MESH_D} cards" if cards else f"{MESH_D} shards of the card"
+    print(f"phase 34{'c' if cards else ''}: the shard_fft bank at long "
+          f"blocks, {n_ch} FM+PL channels x {FS / 1e6:.3f} Msps (N = 2^26) "
+          f"on {where}", flush=True)
+    cfg = bank_mod.make_bank_config(n_ch, "FM", samprate=FS, L=L, M=M,
+                                    enable_pl=True)
+    freqs = bank_freqs(n_ch)
+    block = lambda b: make_block(b, L, freqs, LONG_SIGNAL, (), DEV)  # noqa
+    flat = bank_mod.ChannelBank(cfg, freqs, device=DEV)
+    refs = [flat.process_i16(block(b))[0] for b in range(LONG_SHARD_BLOCKS)]
+    x = block(0)
+    pcm = lambda w: (lambda: w.process_i16_pcm(x))  # noqa: E731
+    flat_ms = cuda_ms(pcm(flat), LONG_SHARD_ITERS)
+    del flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    r0 = _reserved(mesh)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sb = bank_mod.ChannelBank(cfg, freqs, mesh=mesh, shard_fft=True)
+    worst, diff = -1.0, 0.0
+    k0, rp0 = ffill.launches, _replays(sb)
+    sig = list(LONG_SIGNAL)
+    for b, r in enumerate(refs):
+        a, _ = sb.process_i16(block(b))
+        # block 0: the signal channels (see LONG_SHARD_BLOCKS)
+        w, d = _worst(a[sig], r[sig], 1e-4) if b == 0 else _worst(a, r, 1e-4)
+        worst, diff = max(worst, w), max(diff, d)
+        if b == 0:
+            d0 = (a - r).abs().amax(dim=1)
+            noisy = torch.nonzero(d0 > 3e-5).flatten().tolist()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches, replays = ffill.launches - k0, _replays(sb) - rp0
+    check(worst <= 3e-5 and a.shape == refs[0].shape,
+          f"FM+PL {n_ch} ch shard_fft on {where}: audio within atol 3e-5 "
+          f"rtol 1e-4 of the unsharded captured bank, every channel from "
+          f"block 1 and the signal channels from block 0, over "
+          f"{LONG_SHARD_BLOCKS} blocks (max |diff| {diff:.3e})")
+    print(f"  block 0's noise channels past 3e-5: {len(noisy)} "
+          f"(max |diff| {float(d0.max()):.3e}), none a signal channel: "
+          f"{not set(noisy) & set(sig)}", flush=True)
+    check(launches == 2 * MESH_D * LONG_SHARD_BLOCKS
+          and replays == 3 * MESH_D * LONG_SHARD_BLOCKS,
+          f"FM+PL {n_ch} ch shard_fft: ffill launches {launches}, graph "
+          f"replays {replays} in {LONG_SHARD_BLOCKS} blocks (2 and 3 a "
+          f"shard a block)")
+    del refs, a, r
+    held = (_reserved(mesh) - r0) / 2**30
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    eag = bank_mod.ChannelBank(cfg, freqs, mesh=mesh, shard_fft=True,
+                               capture=False)
+    eag.state = sb.state
+    differ = []
+    for b in range(LONG_TWIN_BLOCKS):
+        xb = block(LONG_SHARD_BLOCKS + b)
+        if not (_bit_equal(sb.process_i16_pcm(xb), eag.process_i16_pcm(xb))
+                and _bit_equal(sb.state, eag.state)):
+            differ.append(b)
+    check(not differ, f"FM+PL {n_ch} ch shard_fft on {where}: captured = "
+          f"eager twin bit for bit, state included, over {LONG_TWIN_BLOCKS} "
+          f"blocks; blocks that differ: {differ}")
+    del xb
+    e1, c1 = cuda_ms(pcm(eag), LONG_SHARD_ITERS), cuda_ms(pcm(sb),
+                                                          LONG_SHARD_ITERS)
+    c2, e2 = cuda_ms(pcm(sb), LONG_SHARD_ITERS), cuda_ms(pcm(eag),
+                                                         LONG_SHARD_ITERS)
+    e, c = (e1 + e2) / 2, (c1 + c2) / 2
+    cap_s = sum(g.capture_s for g in sb.graphs)
+    print(f"  FM+PL {n_ch} ch shard_fft on {where}: eager {e:.3f} ms/block "
+          f"({e1:.3f}, {e2:.3f}), captured {c:.3f} ({c1:.3f}, {c2:.3f}); "
+          f"the unsharded captured bank {flat_ms:.3f}; "
+          f"{n_ch * L / (c / 1e3) / 1e6:,.0f} ch x Msps captured; "
+          f"{sum(len(g.graphs) for g in sb.graphs)} graphs captured in "
+          f"{cap_s:.2f} s (first {LONG_SHARD_BLOCKS} blocks {first_s:.2f} s); "
+          f"the captured bank holds {held:.2f} GiB reserved (state and "
+          f"graph pools), peak allocated {peak:.2f} GiB on card 0 [{smi}]",
+          flush=True)
+    del eag
+    # a due and a not-due block with every host sync an error
+    k = cfg.L_dec // demod_fm.PL_DECIMATE
+    raised, counts = None, []
+    for v in (demod_fm.PL_FFT_INTERVAL - k, 0):
+        for st in sb._state:
+            st.demod.pl_counter.fill_(v)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sb.process_i16_pcm(x)
+        except RuntimeError as err:
+            raised = raised or err
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        counts.append(sorted({int(c) for st in sb._state
+                              for c in st.demod.pl_counter.unique()}))
+    check(raised is None and counts == [[0], [k]],
+          f"FM+PL {n_ch} ch shard_fft: a due and a not-due block under "
+          f"set_sync_debug_mode('error'): {raised or 'no host sync'}; PL "
+          f"counters after them {counts} (the due block fired)")
+    del sb, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -3714,6 +3863,10 @@ def main():
         phase_notch_entry(iir, dryrun, bank_mod, ffill, smi)
         phase_bench(smi, fm_scan_ms)
         phase_gates(bank_mod, demod_fm, freqs, smi)
+        phase_shard_fft_long(bank_mod, mesh_mod, demod_fm, ffill, smi)
+        if torch.cuda.device_count() >= MESH_D:
+            phase_shard_fft_long(bank_mod, mesh_mod, demod_fm, ffill, smi,
+                                 cards=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

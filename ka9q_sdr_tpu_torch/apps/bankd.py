@@ -27,10 +27,12 @@ What differs from the JAX daemon:
 - --mesh D takes the first D CUDA cards (fewer where the machine has
   fewer, as the JAX daemon takes ``jax.devices()[:D]``; with --cpu, D CPU
   shards) and prints the mesh it got; one process drives them all
-  (parallel.mesh).  Each shard replays its captured step: on 4 H100s a
-  4096-channel FM block took 2.21 ms against 3.36 on one card, while
-  --shard-fft (whose step stays eager) was slower than the replicated FFT
-  on every geometry measured (PERF.md).
+  (parallel.mesh).  Each shard replays its captured step: on 4 H100s
+  (700 W) a 4096-channel FM+PL block took 2.00 ms against 2.60 on one
+  card.  --shard-fft replays a chain of three captured graphs a shard
+  (the distributed master FFT): 3.12 ms a 4096-channel block on 4 H100s
+  (29.6 eager), slower than the replicated FFT there, and 13.69 ms an
+  8192-channel block of N = 2^26 against 18.92 on one card (PERF.md).
 - --profile writes a torch.profiler trace.
 - KA9Q_BANKD_TIMING=1 prints the loop's split per block on every input path
   (read, poll, step, copy, wait, emit, status), every 250 blocks and at the

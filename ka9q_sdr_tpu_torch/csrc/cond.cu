@@ -1,5 +1,7 @@
-// IF nodes of a CUDA graph under stream capture: the device-side branch
-// that ``utils/graphs.py`` ``cond`` captures as the port's ``lax.cond``.
+// CUDA-graph nodes under stream capture that torch 2.11 does not expose to
+// Python: the IF nodes of ``utils/graphs.py`` ``cond`` (the port's
+// ``lax.cond``), and the peer copies of ``utils/graphs.py`` ``fetch`` (a
+// chain of per-device graphs reading another device's graph outputs).
 //
 // ``cond_if_begin`` adds to the graph that `stream` is capturing a kernel
 // that copies the 0-d bool `pred` into a new conditional handle, then an
@@ -8,14 +10,36 @@
 // caller queues the true branch on `body` and calls ``cond_if_end``.  On
 // each replay the device runs the body only where *pred held when the
 // handle's kernel ran.  The same sequence as PyTorch's
-// CUDAGraph::begin_capture_to_if_node, which torch 2.11 does not expose to
-// Python.  Conditional nodes need CUDA 12.4 (runtime and driver).
+// CUDAGraph::begin_capture_to_if_node.  Conditional nodes need CUDA 12.4
+// or later.
+//
+// ``graph_copy`` queues a copy on `stream`: captured, a memcpy node of the
+// graph, which torch's own cross-device copy is not (it queues on the
+// source device's stream).  ``graph_peer`` enables peer access first.
 //
 // Entries return a cudaError_t (0 = success); ``cond_error`` names one.
 
 #include <cuda_runtime.h>
 
 namespace {
+
+// Sets the calling thread's device for an entry and gives the caller's
+// back on return: the current device is shared with PyTorch's runtime.
+class OnDevice {
+ public:
+  explicit OnDevice(int device) {
+    err_ = cudaGetDevice(&prev_);
+    if (err_ == cudaSuccess && prev_ != device) err_ = cudaSetDevice(device);
+  }
+  ~OnDevice() {
+    if (prev_ >= 0) cudaSetDevice(prev_);
+  }
+  cudaError_t err() const { return err_; }
+
+ private:
+  int prev_ = -1;
+  cudaError_t err_;
+};
 
 __global__ void set_if(cudaGraphConditionalHandle handle, const bool* pred) {
   cudaGraphSetConditional(handle, *pred ? 1u : 0u);
@@ -42,7 +66,8 @@ cudaError_t capture_frontier(cudaStream_t stream, cudaGraph_t* graph,
 // Load the handle kernel on `device` before any capture (a module load
 // inside a capture is not allowed everywhere).
 extern "C" int cond_init(int device) {
-  cudaError_t err = cudaSetDevice(device);
+  OnDevice on(device);
+  cudaError_t err = on.err();
   cudaFuncAttributes attr;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, set_if);
   return static_cast<int>(err);
@@ -55,7 +80,8 @@ extern "C" int cond_if_begin(int device, void* stream, const void* pred,
   const cudaGraphNode_t* deps;
   size_t n;
   cudaGraphConditionalHandle handle;
-  cudaError_t err = cudaSetDevice(device);
+  OnDevice on(device);
+  cudaError_t err = on.err();
   if (err == cudaSuccess) err = capture_frontier(st, &graph, &deps, &n);
   if (err == cudaSuccess)
     err = cudaGraphConditionalHandleCreate(&handle, graph, 0,
@@ -92,9 +118,38 @@ extern "C" int cond_if_begin(int device, void* stream, const void* pred,
 // End the body's capture; the body graph belongs to its node.
 extern "C" int cond_if_end(int device, void* body) {
   cudaGraph_t graph;
-  cudaError_t err = cudaSetDevice(device);
+  OnDevice on(device);
+  cudaError_t err = on.err();
   if (err == cudaSuccess)
     err = cudaStreamEndCapture(static_cast<cudaStream_t>(body), &graph);
+  return static_cast<int>(err);
+}
+
+// Let `device` read and write `peer`'s memory (both must be able to); an
+// access already enabled is no error.
+extern "C" int graph_peer(int device, int peer) {
+  int can = 0;
+  cudaError_t err = cudaDeviceCanAccessPeer(&can, device, peer);
+  if (err == cudaSuccess && !can) err = cudaErrorInvalidDevice;
+  OnDevice on(device);
+  if (err == cudaSuccess) err = on.err();
+  if (err == cudaSuccess) err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();            // clear it: not a fault
+    err = cudaSuccess;
+  }
+  return static_cast<int>(err);
+}
+
+// `bytes` from `src` to `dst` (device pointers of any devices, unified
+// addressing) on `stream` of `device`.
+extern "C" int graph_copy(int device, void* dst, const void* src,
+                          size_t bytes, void* stream) {
+  OnDevice on(device);
+  cudaError_t err = on.err();
+  if (err == cudaSuccess)
+    err = cudaMemcpyAsync(dst, src, bytes, cudaMemcpyDefault,
+                          static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 

@@ -314,20 +314,36 @@ def bank_channelize(
     bins are gathered where they live (the JAX package's ``bin_perm``, a
     permuted spectrum read through an index, has no twin: the sharded step
     reads the comb slices)."""
+    return _channelize_bins(cfg, state, _gather(cfg, state, fdomain))
+
+
+def _gather_index(cfg: BankConfig, state: BankState) -> torch.Tensor:
+    """(B, N_dec) true-bin indices: each channel's window of the master
+    spectrum."""
+    base = torch.as_tensor(cfg.base_idx, dtype=torch.int64,
+                           device=state.k.device)
+    return (base[None, :] + state.k[:, None]) % cfg.N
+
+
+def _gather(cfg: BankConfig, state: BankState, fdomain) -> torch.Tensor:
+    """(B, N_dec) bins of every channel's window, from the spectrum or its
+    comb slices (bank_channelize)."""
+    idx = _gather_index(cfg, state)
+    if isinstance(fdomain, torch.Tensor):
+        return fdomain[idx]
+    from ..parallel.dfft import comb_gather
+
+    return comb_gather(fdomain, idx)
+
+
+def _channelize_bins(cfg: BankConfig, state: BankState,
+                     gathered: torch.Tensor):
+    """bank_channelize from the gathered (B, N_dec) bins."""
     N, N_dec, L_dec = cfg.N, cfg.N_dec, cfg.L_dec
     # the JAX package's expression: f32 residue, complex64 exponent
     phi = torch.exp((-2j * np.pi / N) * state.r.to(torch.float32))
     new_r = (state.r + state.dr) % N
     new_nco, lo = osc_block(state.nco, L_dec)
-    base = torch.as_tensor(cfg.base_idx, dtype=torch.int64,
-                           device=state.k.device)
-    idx = (base[None, :] + state.k[:, None]) % N
-    if isinstance(fdomain, torch.Tensor):
-        gathered = fdomain[idx]
-    else:
-        from ..parallel.dfft import comb_gather
-
-        gathered = comb_gather(fdomain, idx)
     f_fd = gathered * state.resp[None, :] * phi[:, None]
     if _out_type(cfg.mode) is FilterType.CROSS_CONJ:
         return new_r, new_nco, _isb_combine(f_fd, lo, N_dec, L_dec)
@@ -391,11 +407,17 @@ def _bank_step_spectrum(cfg: BankConfig, state: BankState,
     """The bank step after the master FFT: recenter, channelize, demod, and
     the new state holding `overlap`."""
     state = bank_recenter(cfg, state)   # k-hops for swept channels
-    new_r, new_nco, baseband = bank_channelize(cfg, state, fdomain)
+    return _bank_step_bins(cfg, state._replace(overlap=overlap),
+                           _gather(cfg, state, fdomain))
+
+
+def _bank_step_bins(cfg: BankConfig, state: BankState,
+                    gathered: torch.Tensor):
+    """The bank step from a recentered state and its channels' gathered
+    bins: channelize and demod.  Returns (new_state, audio, diag)."""
+    new_r, new_nco, baseband = _channelize_bins(cfg, state, gathered)
     dstate, audio, diag = bank_demod(cfg, state.demod, baseband)
-    new_state = state._replace(overlap=overlap, r=new_r, nco=new_nco,
-                               demod=dstate)
-    return new_state, audio, diag
+    return state._replace(r=new_r, nco=new_nco, demod=dstate), audio, diag
 
 
 def _pcm(audio: torch.Tensor) -> torch.Tensor:
@@ -676,8 +698,11 @@ class ChannelBank:
 
     Each per-block call is the JAX wrapper's jitted step: on a card, one
     captured CUDA graph per variant (``utils.graphs``; on a mesh one per
-    shard, but the ``shard_fft`` step stays eager), replayed once per call;
-    ``process_scan_i16`` replays one graph of k steps.  `capture=False`
+    shard, and with ``shard_fft`` a chain of three per shard joined by
+    events on the devices), replayed once per call; ``process_scan_i16``
+    replays one graph of k steps (on a mesh one per shard, with the master
+    FFT replicated, as the JAX package's mesh scan is whatever
+    ``shard_fft`` says).  `capture=False`
     runs the same steps eagerly (the twin the graphs are held against).
     What a call returns belongs to the caller.  The live state is static:
     live edits write into it, ``state`` reads a copy of it (the same copy

@@ -37,7 +37,7 @@ from ..models.bank import (ChannelBank, MultiBank, bank_init, bank_step,
                            make_bank_config)
 from ..ops.fftfilt import fft_fourstep
 from ..utils.runtime import configure_torch
-from .mesh import gather_bank_state, make_channel_mesh, make_sharded_bank_step
+from .mesh import gather_bank_state, make_channel_mesh
 
 __all__ = ["dryrun_multichip", "entry"]
 
@@ -61,16 +61,16 @@ def _freqs(n_ch, samprate):
 
 def _check_sharded(mesh, n_ch, mode, samprate, L, M, n_blocks, shard_fft,
                    atol, label):
-    """n_blocks through the sharded and the unsharded bank step: raises on
-    an audio divergence beyond atol, and cross-checks every carried state
-    leaf.  Returns max |audio_sharded - audio_unsharded|."""
+    """n_blocks through the sharded bank (``ChannelBank(mesh=)``: on cards
+    its captured graphs, the ``shard_fft`` chain included) and the
+    unsharded bank step: raises on an audio divergence beyond atol, and
+    cross-checks every carried state leaf.  Returns max |audio_sharded -
+    audio_unsharded|."""
     dev = mesh.devices[0]
     cfg = make_bank_config(n_ch, mode, samprate=samprate, L=L, M=M)
     freqs = _freqs(n_ch, samprate)
-    state = bank_init(cfg, freqs, device=dev)
-    step, sharded = make_sharded_bank_step(cfg, mesh, state,
-                                           shard_fft=shard_fft)
-    ref_cfg, ref_state = cfg.to(dev), state
+    sharded = ChannelBank(cfg, freqs, mesh=mesh, shard_fft=shard_fft)
+    ref_cfg, ref_state = cfg.to(dev), bank_init(cfg, freqs, device=dev)
 
     rng = np.random.default_rng(0)
     tt = np.arange(n_blocks * L) / samprate
@@ -83,7 +83,7 @@ def _check_sharded(mesh, n_ch, mode, samprate, L, M, n_blocks, shard_fft,
     max_err = 0.0
     for blk in range(n_blocks):
         x = sig[blk * L:(blk + 1) * L]
-        sharded, audio, _ = step(sharded, x)
+        audio, _ = sharded.process(x)
         ref_state, ref_audio, _ = bank_step(ref_cfg, ref_state, x)
         assert audio.shape[0] == n_ch
         err = float(torch.max(torch.abs(audio - ref_audio)))
@@ -94,7 +94,7 @@ def _check_sharded(mesh, n_ch, mode, samprate, L, M, n_blocks, shard_fft,
                 f"max |err| = {err:.3e} > {atol:.1e}")
     # carried state must agree too (overlap, NCO phases, AGC gains, PLL
     # loop integrators, acquisition rings, lock counters)
-    for a, b in zip(_leaves(gather_bank_state(sharded, dev)),
+    for a, b in zip(_leaves(gather_bank_state(sharded.state, dev)),
                     _leaves(ref_state)):
         np.testing.assert_allclose(
             a.cpu().numpy().astype(np.complex128),

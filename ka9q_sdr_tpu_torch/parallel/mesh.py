@@ -31,11 +31,11 @@ import numpy as np
 import torch
 
 from ..models.bank import (BankConfig, BankState, _active_pcm,
-                           _bank_step_spectrum, _complex_block, _edit_row,
-                           _map_leaves, _pcm, _top_active, bank_step,
-                           iq_from_i16)
-from ..utils.graphs import StepGraphs, scan, static_copy
-from .dfft import make_dfft_sm
+                           _bank_step_bins, _complex_block, _edit_row,
+                           _gather_index, _map_leaves, _pcm, _top_active,
+                           bank_recenter, bank_step, iq_from_i16)
+from ..utils.graphs import MeshGraphs, fetch, scan, static_copy
+from .dfft import comb_assemble, comb_positions, make_dfft_sm
 
 __all__ = [
     "CHANNEL_AXIS",
@@ -186,10 +186,12 @@ class ShardedBankStep:
     Calls take the sharded state (one BankState per device) and write the
     new state into it in place.  Each shard's step is captured as a CUDA
     graph on its own device (``utils.graphs``; `capture=False` runs it
-    eagerly), so a block replays one graph a shard; the ``shard_fft`` step
-    exchanges data between devices inside the step and stays eager.  The
-    gather onto the first device and ``active()``'s top-k run eagerly
-    after the replays."""
+    eagerly), so a block replays one graph a shard.  The ``shard_fft``
+    step exchanges data between devices inside the block: it is a chain
+    of three graphs a shard (``MeshGraphs.chain``, ``_fft_links``), so a
+    block replays three a shard, ordered by events on the devices, with no
+    host wait.  The gather onto the first device and ``active()``'s top-k
+    run eagerly after the replays."""
 
     def __init__(self, cfg: BankConfig, mesh: ChannelMesh,
                  shard_fft: bool = False, capture: bool = True):
@@ -211,16 +213,15 @@ class ShardedBankStep:
                 raise ValueError("shard_fft: the slave gather pattern is not "
                                  "a window of consecutive bins")
             self.dfft = make_dfft_sm(mesh, N)
-            capture = False
-        self.graphs = [StepGraphs(dev, capture) for dev in mesh.devices]
+        self.mesh_graphs = MeshGraphs(mesh.devices, capture)
+        self.graphs = self.mesh_graphs.shards
 
     def set_config(self, cfg: BankConfig) -> None:
         """A config of the same geometry (a filter swap): the shards'
         configs follow it, and the steps are captured again where the
         demodulator's constants (the FM audio gain) changed with it."""
         if cfg.demod_cfg is not self.cfg.demod_cfg:
-            for g in self.graphs:
-                g.clear()
+            self.mesh_graphs.clear()
         self.cfg = cfg
         self.cfgs = shard_configs(cfg, self.mesh)
 
@@ -235,39 +236,71 @@ class ShardedBankStep:
 
         return fn
 
-    def _fft_fn(self, ingest: str, pcm_out: bool):
-        """The shard_fft step over every shard: (states, x) -> (states,
-        [(audio, diag), ...])."""
-        def fn(states, x):
-            L = self.cfgs[0].master.L
-            Q = self.cfgs[0].N // self.mesh.size
-            bufs = []
-            for s, dev in zip(states, self.mesh.devices):
-                blk = _ingest(x.to(dev), ingest)
+    def _fft_links(self, ingest: str, pcm_out: bool) -> tuple:
+        """The shard_fft step as three links a shard (``MeshGraphs.chain``):
+
+        - ingest: the shard's block after the overlap, its slice's partial
+          products (``DistributedFFT.partials``), the recentered state
+          (written) and where each comb slice keeps its channels' bins
+          (``comb_positions``);
+        - fft: comb slice j from every shard's partials (the reduce-scatter
+          sum, twiddle, local FFT), and from it the bins each shard's
+          channels need;
+        - demod: the shard's bins from every comb slice
+          (``comb_assemble``), channelize and demod -> (audio, diag)."""
+        P, devs, dfft = self.mesh.size, self.mesh.devices, self.dfft
+        L, Q = self.cfg.master.L, self.cfg.N // P
+
+        def ingest_link(d):
+            cfg = self.cfgs[d]
+
+            def fn(s, x):
+                blk = _ingest(x, ingest)
                 if blk.shape[-1] != L:
                     raise ValueError(f"block length {blk.shape[-1]} != L = "
                                      f"{L}")
-                bufs.append(torch.cat([s.overlap, blk * s.gain_factor]))
-            combs = self.dfft([buf[p * Q:(p + 1) * Q]
-                               for p, buf in enumerate(bufs)])
-            res = [_bank_step_spectrum(c, s, buf[L:], combs)
-                   for c, s, buf in zip(self.cfgs, states, bufs)]
-            return (tuple(r[0] for r in res),
-                    [((_pcm(a) if pcm_out else a), dg) for _, a, dg in res])
+                buf = torch.cat([s.overlap, blk * s.gain_factor])
+                s = bank_recenter(cfg, s)   # k-hops for swept channels
+                pos = comb_positions(_gather_index(cfg, s), P)
+                return (s._replace(overlap=buf[L:]),
+                        (dfft.partials(d, buf[d * Q:(d + 1) * Q]), pos))
 
-        return fn
+            return fn
+
+        def fft_link(j):
+            def fn(s, prev):
+                comb = dfft.combine(j, [fetch(z[j], devs[j])
+                                        for z, _ in prev])
+                return s, [comb[fetch(pos[j], devs[j])] for _, pos in prev]
+
+            return fn
+
+        def demod_link(d):
+            cfg = self.cfgs[d]
+
+            def fn(s, prev):
+                bins = comb_assemble([fetch(parts[d], devs[d])
+                                      for parts in prev],
+                                     _gather_index(cfg, s))
+                new, audio, diag = _bank_step_bins(cfg, s, bins)
+                return new, ((_pcm(audio) if pcm_out else audio), diag)
+
+            return fn
+
+        return ingest_link, fft_link, demod_link
 
     def _run(self, states, x, ingest: str, pcm_out: bool) -> list:
         """Every shard's (audio, diag); the new state written into
         `states`."""
         x = torch.as_tensor(x, device=self.mesh.devices[0])
-        if self.dfft is not None:
-            return self.graphs[0].run(None, self._fft_fn(ingest, pcm_out),
-                                      states, (x,))
         # the block reaches every device before any shard's step is
         # queued: a copy from the first device waits on its stream, so a
         # copy queued behind shard 0's step would hold the others back
         xs = [x.to(dev) for dev in self.mesh.devices]
+        if self.dfft is not None:
+            return self.mesh_graphs.chain(
+                (ingest, pcm_out), self._fft_links(ingest, pcm_out), states,
+                xs)
         return [g.run((ingest, pcm_out), self._shard_fn(d, ingest, pcm_out),
                       states[d], (xs[d],)) for d, g in enumerate(self.graphs)]
 
@@ -287,14 +320,17 @@ class ShardedBankStep:
 
     def scan(self, states, blocks, pcm_out: bool = False):
         """(k, L, 2) int16 blocks in order: on each shard one graph of k
-        steps.  Returns the audio (k, B, L_dec[, 2]) on the first
-        device."""
+        steps.  Returns the audio (k, B, L_dec[, 2]) on the first device.
+
+        The steps replicate the master FFT, with `shard_fft` too: the JAX
+        package compiles a mesh bank's ``process_scan_i16`` as the
+        replicated ``bank_scan_packed_i16`` whatever ``shard_fft`` says."""
         dev0 = self.mesh.devices[0]
-        if self.dfft is not None:
-            return torch.stack([self.step(states, x, "i16", pcm_out)[0]
-                                for x in blocks])
         blocks = torch.as_tensor(blocks, device=dev0)
         staged = [blocks.to(dev) for dev in self.mesh.devices]   # see _run
+        # after a shard_fft block: no graph may overwrite what another
+        # device's link still reads
+        self.mesh_graphs.fence()
         parts = []
         for d, g in enumerate(self.graphs):
             def one(s, x, fn=self._shard_fn(d, "i16", pcm_out)):
@@ -345,7 +381,7 @@ def make_sharded_bank_step(cfg: BankConfig, mesh: ChannelMesh,
     Returns (step, sharded_state); step(sharded_state, x) -> (sharded_state,
     audio, diag).  The step is functional and eager: it leaves the state
     it is given as it was (``ChannelBank(mesh=)`` holds a static state and
-    replays each shard's captured step)."""
+    replays the captured steps, the twin of this one)."""
     if ingest not in ("f32", "i16"):
         raise ValueError(f"ingest must be 'f32' or 'i16', got {ingest!r}")
     if pcm_out and ingest != "i16":

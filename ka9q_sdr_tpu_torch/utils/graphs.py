@@ -26,13 +26,22 @@ becomes a conditional node of the graph, which the device resolves on
 each replay.  The graphs of one
 ``StepGraphs`` share one memory pool; that is safe because the only
 tensors live across replays are the state and the static inputs (allocated
-outside the pool) and each replay's outputs are cloned on the same stream
-before any other replay.  A capture or a replay that fails raises: nothing
+outside the pool), each replay's outputs are cloned on the same stream
+before any other replay, and a chain link's own outputs stay allocated
+(no later capture reuses them) and are read only in the order
+``MeshGraphs`` queues.  A capture or a replay that fails raises: nothing
 falls back to the eager step.  ``capture=False``, or a CPU device, runs
 the same step eagerly through the same static-state code (the eager twin
 that the card's checks hold the graphs against).  Python's cyclic
 collector is held off during a capture: a wrapper dropped in a reference
 cycle would otherwise have its graphs torn down mid-capture.
+
+A step whose shards exchange data within a block (the distributed master
+FFT of a mesh bank) is a chain of per-device graphs (``MeshGraphs``): each
+link is one device's graph, the next link reads its outputs in place
+(``fetch``: a memcpy node in the reading graph where the devices differ),
+and events queued on the devices order the links; the host waits on
+none.
 
 Kernel launch counts: a kernel wrapper counts its launches as it queues
 them, which a replay does not do.  The launches a capture queued are
@@ -51,8 +60,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-__all__ = ["StepGraphs", "write_state", "clone_tree", "static_copy", "scan",
-           "cond", "tree_leaves"]
+__all__ = ["StepGraphs", "MeshGraphs", "write_state", "clone_tree",
+           "static_copy", "scan", "cond", "fetch", "tree_leaves"]
 
 #: CUDA allows one stream capture at a time in a process; the daemons that
 #: share one (``chip_smoke.py`` runs several on threads) take turns here.
@@ -223,6 +232,10 @@ def _cond_lib(device: int):
         lib.cond_if_begin.argtypes = [ctypes.c_int, ctypes.c_void_p,
                                       ctypes.c_void_p, ctypes.c_void_p]
         lib.cond_if_end.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.graph_peer.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.graph_copy.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                   ctypes.c_void_p, ctypes.c_size_t,
+                                   ctypes.c_void_p]
         lib.cond_error.restype = ctypes.c_char_p
     if device not in _COND_READY:
         _cond_check(lib, lib.cond_init(device), "loading the IF-node kernel")
@@ -268,6 +281,47 @@ def _cond_node(cap, pred, true_fn, false_fn, operands):
         raise RuntimeError("a hand kernel launched inside a conditional "
                            "node would be counted on every replay")
     return out
+
+
+def fetch(t: torch.Tensor, device) -> torch.Tensor:
+    """`t` on `device`: `t` itself where it lives there, else a copy.
+
+    Inside a capture on `device` the copy is a memcpy node of that graph
+    on the capturing stream, from `t`'s address (another graph's output,
+    which stays put); torch's cross-device copy would queue on `t`'s
+    device's stream, outside the capture.  The card must have peer access
+    to `t`'s (``MeshGraphs`` enables it).  Elsewhere ``t.to(device)``."""
+    device = _indexed(device)
+    if t.device == device:
+        return t
+    if not (device.type == "cuda" and t.device.type == "cuda"
+            and torch.cuda.is_current_stream_capturing()):
+        return t.to(device)
+    out = torch.empty(t.shape, dtype=t.dtype, device=device)
+    _copy_node(out, t)
+    return out
+
+
+def _indexed(device) -> torch.device:
+    """`device` with its index ("cuda" is the current card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _copy_node(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Queue a copy of `src` into `dst` (contiguous, one size, any cards)
+    on dst's card's current stream: a memcpy node where it captures."""
+    if not (src.is_contiguous() and dst.is_contiguous()
+            and src.nbytes == dst.nbytes):
+        raise ValueError("a copy node needs two contiguous tensors of one "
+                         "size")
+    dev = dst.device.index
+    lib = _cond_lib(dev)
+    stream = torch.cuda.current_stream(dst.device).cuda_stream
+    _cond_check(lib, lib.graph_copy(dev, dst.data_ptr(), src.data_ptr(),
+                                    src.nbytes, stream), "a peer copy")
 
 
 def _counters() -> tuple:
@@ -322,24 +376,37 @@ class StepGraphs:
         self._pool = None           # a new pool: the old one goes with them
 
     def run(self, key, fn: Callable, state, inputs: tuple,
-            warmup: Callable | None = None):
+            warmup: Callable | None = None, *, fixed=None,
+            own: bool = False):
         """fn(state, *inputs) -> (new_state, outputs): writes new_state
         into `state`'s tensors and returns outputs the caller owns.
         `inputs` are tensors (any device; copied to this one).  `warmup`,
         where given, replaces fn for the capture's warm-up run (a scan
-        warms up with one step)."""
+        warms up with one step).
+
+        A link of a chain (``MeshGraphs``): `fixed`, where given, is a
+        tree of tensors at fixed addresses (earlier links' outputs) passed
+        as fn's last argument and read in place, not copied; a graph is
+        captured for each set of their addresses.  `own` returns the
+        graph's own output buffers, which the next replay overwrites,
+        instead of clones."""
+        extra = () if fixed is None else (fixed,)
         if not self.capture:
-            new, out = fn(state, *inputs)
+            new, out = fn(state, *inputs, *extra)
             write_state(state, new)
+            if own:
+                return out
             static = {_storage(t) for t in tree_leaves(state)}
             # an output that is a state tensor changes with the next block
             return _map(lambda t: t.clone() if _storage(t) in static else t,
                         out)
         key = (key,) + tuple((tuple(x.shape), x.dtype) for x in inputs)
+        if fixed is not None:
+            key += (_ptrs(fixed),)
         with torch.cuda.device(self.device):
             g = self.graphs.get(key)
             if g is None:
-                g = self._capture(key, fn, state, inputs, warmup)
+                g = self._capture(key, fn, state, inputs, warmup, extra)
             elif g.state_ptrs != _ptrs(state):
                 raise RuntimeError(
                     "the static state was replaced since its graph was "
@@ -350,9 +417,9 @@ class StepGraphs:
             self.replays += 1
             for m, n in zip(_counters(), g.launches):
                 m.launches += n
-            return clone_tree(g.outputs)
+            return g.outputs if own else clone_tree(g.outputs)
 
-    def _capture(self, key, fn, state, inputs, warmup) -> _Graph:
+    def _capture(self, key, fn, state, inputs, warmup, extra) -> _Graph:
         with _CAPTURE_LOCK:
             t0 = time.perf_counter()
             if self._stream is None:
@@ -373,7 +440,7 @@ class StepGraphs:
                                     self._body)
             try:
                 with torch.cuda.stream(self._stream):
-                    (warmup or fn)(state, *static_in)  # results dropped
+                    (warmup or fn)(state, *static_in, *extra)  # dropped
                 cur.wait_stream(self._stream)
                 warm = _counts()
                 graph = torch.cuda.CUDAGraph()
@@ -386,7 +453,7 @@ class StepGraphs:
                     with torch.cuda.graph(graph, pool=self._pool,
                                           stream=self._stream,
                                           capture_error_mode="thread_local"):
-                        new, out = fn(state, *static_in)
+                        new, out = fn(state, *static_in, *extra)
                         write_state(state, new)
                 finally:
                     if collecting:
@@ -399,3 +466,92 @@ class StepGraphs:
             self.graphs[key] = g
             self.capture_s += time.perf_counter() - t0
             return g
+
+
+class MeshGraphs:
+    """The compiled steps of one host wrapper over a mesh: one
+    ``StepGraphs`` a shard (`shards`, each with its own pool and static
+    buffers), and ``chain`` for a step whose shards exchange data within
+    a block.
+
+    A chain is a list of links.  Link i of shard d is a step on d's device
+    alone, one graph of d's ``StepGraphs``: link 0 reads the shard's input
+    (copied into a static tensor), link i > 0 every shard's outputs of
+    link i - 1 in place (the producing graphs' own buffers), bringing what
+    it needs onto its device with ``fetch``.  A graph never spans devices,
+    so each one's allocations land in its own device's pool.  On a card,
+    events on the devices' current streams order the links, and the host
+    waits on none of them:
+
+    - link i > 0 of a shard waits for link i - 1 of every shard;
+    - link 0 of a block waits for the last link of every shard in the
+      block before, so no device overwrites a buffer (an output, or a
+      temporary that its pool gives a later capture) that another device
+      may still be reading (``fence`` queues the same wait for other
+      steps of the shards).
+
+    On the CPU, or with `capture` off, the links run eagerly in the same
+    order."""
+
+    def __init__(self, devices, capture: bool = True):
+        self.shards = [StepGraphs(d, capture) for d in devices]
+        self._events: dict = {}     # (link, shard) -> torch.cuda.Event
+        self._last: list = []       # the last link's events, last chain
+        self._peers = False
+
+    def clear(self) -> None:
+        for g in self.shards:
+            g.clear()
+
+    def _wait(self, g: StepGraphs, events) -> None:
+        if g.device.type == "cuda":
+            stream = torch.cuda.current_stream(g.device)
+            for e in events:
+                stream.wait_event(e)
+
+    def fence(self) -> None:
+        """Queue on every shard's device a wait for the last link of the
+        last chain on every shard."""
+        for g in self.shards:
+            self._wait(g, self._last)
+
+    def _enable_peers(self) -> None:
+        """Peer access between every two cards of the mesh, before any
+        capture that reads another card's memory."""
+        cards = sorted({_indexed(g.device).index for g in self.shards
+                        if g.capture})
+        for a in cards:
+            lib = _cond_lib(a)
+            for b in cards:
+                if a != b:
+                    _cond_check(lib, lib.graph_peer(a, b),
+                                f"peer access from cuda:{a} to cuda:{b}")
+        self._peers = True
+
+    def chain(self, key, links, states, inputs) -> list:
+        """One step over every shard as len(links) links: links[i](d) is
+        shard d's fn for link i, fn(states[d], inputs[d]) for link 0 and
+        fn(states[d], outs) after it, where outs[p] is what link i - 1
+        returned on shard p; each returns (new_state, outputs).  Returns
+        the last link's outputs of every shard, which the caller owns."""
+        if not self._peers:
+            self._enable_peers()
+        waits = self._last
+        outs = None
+        for i, link in enumerate(links):
+            last = i == len(links) - 1
+            done = []
+            for d, g in enumerate(self.shards):
+                self._wait(g, waits)
+                args = dict(fixed=outs) if i else {}
+                done.append(g.run((key, i), link(d), states[d],
+                                  () if i else (inputs[d],), own=not last,
+                                  **args))
+                if g.device.type == "cuda":
+                    ev = self._events.setdefault((i, d), torch.cuda.Event())
+                    ev.record(torch.cuda.current_stream(g.device))
+            waits = [self._events[(i, d)] for d, g in enumerate(self.shards)
+                     if g.device.type == "cuda"]
+            outs = done
+        self._last = waits
+        return outs

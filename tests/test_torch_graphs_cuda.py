@@ -17,20 +17,29 @@ channels at 1.536 Msps, L = 30720, M = 34817; the receiver at 192 kHz).
 The ``graphs.cond`` cases hold its IF node to the eager branch, a 40-block
 FM+PL scan (two PL firings) to single replays and the eager twin, and a
 MultiBank re-commissioning an FM row to its eager twin past the first
-carrier search.
+carrier search.  The ``shard_fft`` cases run the distributed-master-FFT
+bank and ``make_dfft`` as chains of per-device graphs
+(``graphs.MeshGraphs``) on 4 shards: the machine's first 4 cards where it
+has them (the peer copies are then memcpy nodes), else 4 shards of the
+card.
 """
 
 import gc
+import importlib
 
 import numpy as np
 import pytest
 import torch
 
 from ka9q_sdr_tpu_torch.models import bank as TB
+from ka9q_sdr_tpu_torch.models import demod_fm
 from ka9q_sdr_tpu_torch.models import receiver as TR
 from ka9q_sdr_tpu_torch.ops import agc, ffill
 from ka9q_sdr_tpu_torch.parallel import mesh as TM
 from ka9q_sdr_tpu_torch.utils import graphs
+
+# the package exports a function named dfft beside its module dfft
+TDF = importlib.import_module("ka9q_sdr_tpu_torch.parallel.dfft")
 
 FS, LW, M, B = 1.536e6, 30720, 34817, 8
 FREQS = list(np.linspace(-0.45 * FS, 0.45 * FS, B, endpoint=False))
@@ -41,6 +50,16 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def mesh4(card):
+    """4 shards: the first 4 cards where the machine has them, else 4
+    shards of the card."""
+    n = torch.cuda.device_count()
+    return TM.make_channel_mesh(devices=[torch.device("cuda", i)
+                                         for i in range(4)]
+                                if n >= 4 else [card] * 4)
 
 
 def _blocks(n, seed=3, L=LW, fs=FS, freqs=FREQS[1::2]):
@@ -310,3 +329,129 @@ def test_gated_multibank_through_init_channel(card):
     fm, cam = (s.demod for s in cap.states)
     assert fm.pl_counter.tolist() == [120, 390, 120, 120]
     assert (cam.fft_samples == 150).all()
+
+
+def _due(bank, v):
+    """Set every shard's PL counter so the next block is due (v > 0) or
+    not (v = 0)."""
+    for st in bank._state:
+        st.demod.pl_counter.fill_(v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["FM", "CAM", "ISB"])
+def test_shard_fft_chain_equals_eager(mesh4, mode):
+    """The distributed-master-FFT bank on 4 shards: a chain of three
+    graphs a shard, replayed in turn each block, equal to the eager twin
+    bit for bit through the live edits (the filter swap recaptures the
+    chain) and a due PL block; its scan replays one graph a shard (the
+    replicated master FFT), equal to the twin's scan; what a call returned
+    survives the replays that follow."""
+    cfg = TB.make_bank_config(B, mode, samprate=FS, L=LW, M=M,
+                              enable_pl=True)
+    cap = TB.ChannelBank(cfg, FREQS, mesh=mesh4, shard_fft=True)
+    eager = TB.ChannelBank(cfg, FREQS, mesh=mesh4, shard_fft=True,
+                           capture=False)
+    k = cfg.L_dec // demod_fm.PL_DECIMATE
+    blocks = _blocks(12)
+    current = torch.cuda.current_device()
+    held = []
+    for b, x in enumerate(blocks[:10]):
+        if b in EDITS:
+            EDITS[b](cap)
+            EDITS[b](eager)
+        if b == 4 and mode == "FM":
+            for w in (cap, eager):
+                _due(w, demod_fm.PL_FFT_INTERVAL - k)
+        f0, a0, r0 = ffill.launches, agc.launches, [
+            g.replays for g in cap.graphs]
+        got = (cap.process_i16_pcm(x) if b % 3 else
+               cap.process_active(x, max_active=4, n_valid=7))
+        assert [g.replays for g in cap.graphs] == [r + 3 for r in r0]
+        assert ffill.launches - f0 == (8 if mode == "FM" else 0)
+        assert agc.launches - a0 == (0 if mode == "FM" else 4)
+        want = (eager.process_i16_pcm(x) if b % 3 else
+                eager.process_active(x, max_active=4, n_valid=7))
+        assert_bit_equal(got, want)
+        assert_bit_equal(cap.state, eager.state)
+        held.append((got, graphs.clone_tree(got)))
+    if mode == "FM":           # the due block fired on every shard
+        assert all((st.demod.pl_counter == 5 * k).all()
+                   for st in cap.state)
+    xs = np.stack(blocks[10:])
+    r0 = [g.replays for g in cap.graphs]
+    got = cap.process_scan_i16(xs, pcm_out=True)
+    assert [g.replays for g in cap.graphs] == [r + 1 for r in r0]
+    assert torch.equal(got, eager.process_scan_i16(xs, pcm_out=True))
+    assert_bit_equal(cap.state, eager.state)
+    x = blocks[0]
+    assert_bit_equal(cap.process_i16(x), eager.process_i16(x))
+    # the chain's peer access and captures leave the caller's card current
+    assert torch.cuda.current_device() == current
+    torch.cuda.synchronize()
+    for out, copy in held:
+        assert_bit_equal(out, copy)
+
+
+@pytest.mark.cuda
+def test_shard_fft_step_makes_no_host_sync(mesh4):
+    """A captured shard_fft block, due and not due, with every host
+    synchronisation an error."""
+    cfg = TB.make_bank_config(B, "FM", samprate=FS, L=LW, M=M,
+                              enable_pl=True)
+    bank = TB.ChannelBank(cfg, FREQS, mesh=mesh4, shard_fft=True)
+    x = torch.as_tensor(_blocks(1)[0], device=mesh4.devices[0])
+    bank.process_i16_pcm(x)             # the captures
+    k = cfg.L_dec // demod_fm.PL_DECIMATE
+    for v, after in ((demod_fm.PL_FFT_INTERVAL - k, 0), (0, k)):
+        _due(bank, v)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            bank.process_i16_pcm(x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert all((st.demod.pl_counter == after).all()
+                   for st in bank.state)
+
+
+@pytest.mark.cuda
+def test_make_dfft_chain_equals_eager(mesh4):
+    """make_dfft as a chain of two captured graphs a device, bit-equal to
+    the eager chain and to the one-function composition, and the FFT."""
+    N = 1 << 16
+    cap = TDF.make_dfft(mesh4, N)
+    eager = TDF.make_dfft(mesh4, N, capture=False)
+    sm = TDF.make_dfft_sm(mesh4, N)
+    rng = np.random.default_rng(5)
+    for i in range(3):
+        x = (rng.standard_normal(N) + 1j * rng.standard_normal(N)).astype(
+            np.complex64)
+        got = cap(x)
+        assert [g.replays for g in cap.graphs.shards] == [2 * (i + 1)] * 4
+        assert_bit_equal(got, eager(x))
+        xt = torch.as_tensor(x)
+        whole = torch.cat([c.to(mesh4.devices[0]) for c in sm(
+            [xt[p * N // 4:(p + 1) * N // 4].to(d)
+             for p, d in enumerate(mesh4.devices)])])
+        assert_bit_equal(got, whole)
+        ref = np.fft.fft(x.astype(np.complex128))
+        err = np.abs(TDF.undo_comb(got.cpu().numpy(), 4) - ref).max()
+        assert err < 2e-5 * np.abs(ref).max()
+
+
+@pytest.mark.cuda
+def test_copy_node_is_captured(card):
+    """graphs._copy_node inside a capture: a memcpy node that copies on
+    every replay; fetch leaves a tensor on its own device as it is."""
+    def step(s, x):
+        out = torch.empty_like(x)
+        graphs._copy_node(out, x * 2.0)
+        assert graphs.fetch(out, card) is out
+        return s, (out,)
+
+    g = graphs.StepGraphs(card)
+    for v in (1.0, 3.0):
+        (out,) = g.run("k", step, (), (torch.full((64,), v, device=card),))
+        assert torch.equal(out, torch.full((64,), 2 * v, device=card))
+    assert g.replays == 2

@@ -161,6 +161,7 @@ for shard_fft in (False, True):
                      shard_fft=shard_fft)
     pcm, idx, _ = sb.process_active(x, max_active=4, n_valid=3)
     assert pcm.shape == (4, 960) and int(idx.max()) < 3
+    assert sb.process_scan_i16(np.stack([x, x])).shape == (2, 4, 960)
 spec = parallel.dfft(mesh, np.ones(64, np.complex64))
 assert abs(spec[0] - 64) < 1e-4 and np.abs(spec[1:]).max() < 1e-4
 out = os.path.join(tmp, "mesh.pcm")
