@@ -100,7 +100,16 @@ drives the channel bank through its user entry points:
   to the eager twin; ``torch.profiler`` kernel counts showing the 16384-
   point rFFT on the due replay only and no acquisition FFT in 40 blocks
   of a 256-channel CAM bank whose every channel has locked; and each
-  gate's cost, a due block against a not-due one.
+  gate's cost, a due block against a not-due one;
+- the runner's rows at full width against outputs the JAX package made
+  (``ka9q_sdr_tpu_torch/data/reference``, ``tools/reference.py``): R1
+  (the FM+PL 8192-channel long block), R2 (FM+PL 4096, one block a call
+  and 8-block scans), R3 (the FM:5120 + USB:512 + CAM:512 MultiBank), R4
+  (CAM 4096 wide) and R5 (CAM 2048 at 24.576 Msps, scans): each input's
+  SHA-256, then the captured calls held to the module's bounds (integer
+  state bit-equal, flags, kept PCM within PARITY.md #9, audio RMS within
+  0.1 dB), the fill and AGC launches and the replays counted, and the
+  device ms a block.
 
 Times come from CUDA events.  Phases print their
 findings line by line.
@@ -3693,6 +3702,82 @@ def phase_shard_fft_long(bank_mod, mesh_mod, demod_fm, ffill, smi,
     torch.cuda.empty_cache()
 
 
+#: phase 35: CUDA-event calls timed a row after its checked blocks
+REF_ITERS = 5
+#: the fill and AGC launches a block of each reference row's path: FM 2
+#: fills, CAM 1 AGC, the mixed row's FM group 2 fills and its USB and CAM
+#: groups an AGC each
+REF_LAUNCHES = {"R1": (2, 0), "R2": (2, 0), "R3": (2, 2), "R4": (0, 1),
+                "R5": (0, 1)}
+
+
+def phase_reference(ref_mod, smi):
+    """The runner's rows R1-R5 against the JAX package's reference outputs
+    (``ka9q_sdr_tpu_torch/data/reference``, ``tools/reference.py``): each
+    row's input made again and its SHA-256 held to the file's, its K
+    blocks through the port's captured calls (``process_i16_pcm`` one
+    block a call, ``process_scan_i16(pcm_out=True)`` in chunks of 8,
+    ``MultiBank.process``) with the fill and AGC launched as the path needs
+    and one replay a call, every bound of tools/reference.py held (integer
+    state bit-equal; flags; kept PCM within PARITY.md #9; audio RMS within
+    0.1 dB); per row the worst LSB, the RMS error, the flags that differ
+    and the device ms a block by CUDA events."""
+    import gc
+
+    print("phase 35: the runner's rows against the JAX package's reference "
+          f"outputs ({', '.join(ref_mod.ROWS)}; bounds: integer state "
+          f"bit-equal, flags equal, kept PCM <= {ref_mod.PCM_LSB} LSB and "
+          f"<= {ref_mod.PCM_RMS_DBFS:g} dBFS, RMS within {ref_mod.RMS_DB} dB "
+          "above -90 dBFS)", flush=True)
+    t0 = time.perf_counter()
+    rows = []
+    for name, row in ref_mod.ROWS.items():
+        ref = ref_mod.load(name)
+        t_in = time.perf_counter()
+        freqs, x = ref_mod.row_input(row)
+        t_in = time.perf_counter() - t_in
+        sha = ref_mod.input_sha256(x)
+        if not check(sha == ref["sha256"], f"{name}: the input made here "
+                     f"({t_in:.1f} s on the host) has the reference's "
+                     f"SHA-256 {ref['sha256'][:16]}..."):
+            continue
+        for call in row.calls:
+            arrays, stats = ref_mod.run_port(row, DEV, call, x=x,
+                                             freqs=freqs,
+                                             timing_iters=REF_ITERS)
+            rep = ref_mod.compare(ref, arrays, name, call)
+            fills, agcs = REF_LAUNCHES[name]
+            n_calls = (row.K // ref_mod.SCAN_CHUNK + row.K
+                       % ref_mod.SCAN_CHUNK) if call == "scan" else row.K
+            got = stats["launches"]
+            check(got == {"ffill": fills * row.K, "agc": agcs * row.K}
+                  and stats["replays"] == n_calls,
+                  f"{name} {call}: {row.K} blocks launched ffill "
+                  f"{got['ffill']}, agc {got['agc']} ({fills} / {agcs} a "
+                  f"block) in {stats['replays']} graph replays ({n_calls} "
+                  "calls)")
+            ms = stats["ms"]
+            check(rep.ok, f"{rep.summary()}; "
+                  + ("not measured" if ms is None else f"{ms:.4f} ms")
+                  + f" a block by CUDA events [{smi}]")
+            rows.append((name, call, max(rep.lsb), max(rep.lsb_out),
+                         max(rep.pcm_rms_dbfs), rep.flags_differ[0],
+                         sum(f for f in rep.flags_differ[1:] if f >= 0),
+                         not rep.state_differ, max(rep.rms_db),
+                         max(rep.rms_db_out), ms))
+            del arrays
+        del x, ref
+        gc.collect()
+    print(f"  summary [{smi}]: row | call | kept PCM worst LSB in the "
+          "bounds' domain | outside it | kept PCM difference RMS dBFS | "
+          "flags differing in block 0 | later | integer state equal | audio "
+          "RMS worst dB in the domain | outside it | ms a block", flush=True)
+    for r in rows:
+        print("  | " + " | ".join(f"{v:.4f}" if isinstance(v, float) else
+                                  str(v) for v in r) + " |", flush=True)
+    print(f"  phase 35 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
@@ -3719,7 +3804,8 @@ def main():
         from ka9q_sdr_tpu_torch.apps import control
         from ka9q_sdr_tpu_torch.audio import opus_codec, transcode
         from ka9q_sdr_tpu_torch.parallel import dryrun, mesh as mesh_mod
-        from ka9q_sdr_tpu_torch.tools import serve_soak, stage_profile
+        from ka9q_sdr_tpu_torch.tools import (reference, serve_soak,
+                                              stage_profile)
     except ModuleNotFoundError as e:
         print(f"chip_smoke: the port is not importable ({e}); run this "
               "script from the root of a checkout", file=sys.stderr)
@@ -3867,6 +3953,7 @@ def main():
         if torch.cuda.device_count() >= MESH_D:
             phase_shard_fft_long(bank_mod, mesh_mod, demod_fm, ffill, smi,
                                  cards=True)
+        phase_reference(reference, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

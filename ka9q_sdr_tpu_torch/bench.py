@@ -350,12 +350,14 @@ def _run(dev) -> int:
             dev, "FM", n_channels, samprate, L, M, warmup,
             max(8, iters // 2), enable_pl=True, use_scan=False,
         )
-        value = n_channels * sps / 1e6        # channels x Msps
+        # channels x Msps; vs_baseline from the printed value, so the
+        # line's two numbers agree at a rounding boundary
+        value = round(n_channels * sps / 1e6, 3)
         print(
             json.dumps(
                 {
                     "metric": "channels_x_Msps_demodulated_per_chip",
-                    "value": round(value, 3),
+                    "value": value,
                     "unit": "ch*Msps",
                     "vs_baseline": round(value / BASELINE, 1),
                     "device": name,

@@ -702,7 +702,8 @@ class ChannelBank:
     events on the devices), replayed once per call; ``process_scan_i16``
     replays one graph of k steps (on a mesh one per shard, with the master
     FFT replicated, as the JAX package's mesh scan is whatever
-    ``shard_fft`` says).  `capture=False`
+    ``shard_fft`` says; so is a mesh's ``process_active``).
+    `capture=False`
     runs the same steps eagerly (the twin the graphs are held against).
     What a call returns belongs to the caller.  The live state is static:
     live edits write into it, ``state`` reads a copy of it (the same copy

@@ -289,18 +289,25 @@ class ShardedBankStep:
 
         return ingest_link, fft_link, demod_link
 
-    def _run(self, states, x, ingest: str, pcm_out: bool) -> list:
+    def _run(self, states, x, ingest: str, pcm_out: bool,
+             replicated: bool = False) -> list:
         """Every shard's (audio, diag); the new state written into
-        `states`."""
+        `states`.  A `shard_fft` mesh runs its chain unless `replicated`:
+        then each shard's step with the master FFT replicated, after a
+        fence."""
         x = torch.as_tensor(x, device=self.mesh.devices[0])
         # the block reaches every device before any shard's step is
         # queued: a copy from the first device waits on its stream, so a
         # copy queued behind shard 0's step would hold the others back
         xs = [x.to(dev) for dev in self.mesh.devices]
         if self.dfft is not None:
-            return self.mesh_graphs.chain(
-                (ingest, pcm_out), self._fft_links(ingest, pcm_out), states,
-                xs)
+            if not replicated:
+                return self.mesh_graphs.chain(
+                    (ingest, pcm_out), self._fft_links(ingest, pcm_out),
+                    states, xs)
+            # after a shard_fft block: no graph may overwrite what another
+            # device's link still reads
+            self.mesh_graphs.fence()
         return [g.run((ingest, pcm_out), self._shard_fn(d, ingest, pcm_out),
                       states[d], (xs[d],)) for d, g in enumerate(self.graphs)]
 
@@ -349,8 +356,12 @@ class ShardedBankStep:
         are gathered onto the first device, the top-max_active taken there
         (rows at or past n_valid never compete), and each selected row is
         fetched from the shard that owns it.  Writes the new state into
-        `states`; returns (pcm, idx, diag) as bank_step_active."""
-        outs = self._run(states, x_i16, "i16", False)
+        `states`; returns (pcm, idx, diag) as bank_step_active.
+
+        The steps replicate the master FFT, with `shard_fft` too: the JAX
+        package compiles a mesh bank's ``process_active`` as the
+        replicated ``bank_step_active`` whatever ``shard_fft`` says."""
+        outs = self._run(states, x_i16, "i16", False, replicated=True)
         dev0, b = self.mesh.devices[0], self.b
         flats = [a.reshape(a.shape[0], -1) for a, _ in outs]
         peak = gather_shards(

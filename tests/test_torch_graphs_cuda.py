@@ -344,9 +344,10 @@ def test_shard_fft_chain_equals_eager(mesh4, mode):
     """The distributed-master-FFT bank on 4 shards: a chain of three
     graphs a shard, replayed in turn each block, equal to the eager twin
     bit for bit through the live edits (the filter swap recaptures the
-    chain) and a due PL block; its scan replays one graph a shard (the
-    replicated master FFT), equal to the twin's scan; what a call returned
-    survives the replays that follow."""
+    chain) and a due PL block; its scan and its process_active replay one
+    graph a shard (the replicated master FFT, as JAX compiles them), equal
+    to the twin's; what a call returned survives the replays that
+    follow."""
     cfg = TB.make_bank_config(B, mode, samprate=FS, L=LW, M=M,
                               enable_pl=True)
     cap = TB.ChannelBank(cfg, FREQS, mesh=mesh4, shard_fft=True)
@@ -367,7 +368,8 @@ def test_shard_fft_chain_equals_eager(mesh4, mode):
             g.replays for g in cap.graphs]
         got = (cap.process_i16_pcm(x) if b % 3 else
                cap.process_active(x, max_active=4, n_valid=7))
-        assert [g.replays for g in cap.graphs] == [r + 3 for r in r0]
+        assert [g.replays for g in cap.graphs] == [
+            r + (3 if b % 3 else 1) for r in r0]
         assert ffill.launches - f0 == (8 if mode == "FM" else 0)
         assert agc.launches - a0 == (0 if mode == "FM" else 4)
         want = (eager.process_i16_pcm(x) if b % 3 else
@@ -391,6 +393,28 @@ def test_shard_fft_chain_equals_eager(mesh4, mode):
     torch.cuda.synchronize()
     for out, copy in held:
         assert_bit_equal(out, copy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["FM", "CAM"])
+def test_shard_fft_active_equals_replicated(mesh4, mode):
+    """process_active on a shard_fft bank, between its chain's blocks:
+    from the same state, bit-equal to the replicated mesh bank's (PCM,
+    indices, diag and state), one replay a shard."""
+    cfg = TB.make_bank_config(B, mode, samprate=FS, L=LW, M=M,
+                              enable_pl=True)
+    sf = TB.ChannelBank(cfg, FREQS, mesh=mesh4, shard_fft=True)
+    rep = TB.ChannelBank(cfg, FREQS, mesh=mesh4)
+    blocks = _blocks(12, seed=5)
+    for b in range(6):
+        sf.process_i16_pcm(blocks[2 * b])          # the chain
+        rep.state = sf.state
+        r0 = [g.replays for g in sf.graphs]
+        got = sf.process_active(blocks[2 * b + 1], max_active=4, n_valid=7)
+        assert [g.replays for g in sf.graphs] == [r + 1 for r in r0]
+        assert_bit_equal(got, rep.process_active(blocks[2 * b + 1],
+                                                 max_active=4, n_valid=7))
+        assert_bit_equal(sf.state, rep.state)
 
 
 @pytest.mark.cuda

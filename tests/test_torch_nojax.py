@@ -8,8 +8,9 @@ packet modem's session on an AFSK frame, two front-end blocks of a tiny
 recording, ``modulate`` on a few blocks, a band-plan lookup, a Mixer read,
 an Opus round trip (where libopus is present), the sharded bank, the
 distributed FFT and ``bankd --mesh`` on CPU shards, the stage profile, the
-``utils`` re-exports, a notch block, two blocks of ``dryrun.entry`` and a
-tiny ``--cpu`` pass of the benchmark runner (``bench``),
+``utils`` re-exports, a notch block, two blocks of ``dryrun.entry``, a
+tiny ``--cpu`` pass of the benchmark runner (``bench``) and the reference
+comparator (``tools.reference``: R5's input hash, a tiny row),
 on the CPU in a subprocess where ``import jax`` and ``import ka9q_sdr_tpu``
 fail."""
 
@@ -198,6 +199,14 @@ efn, (est, ex) = dryrun.entry("cpu")
 for _ in range(2):
     est, eaudio, ediag = efn(est, ex)
 assert eaudio.shape == (16, 120) and bool(torch.isfinite(eaudio).all())
+from ka9q_sdr_tpu_torch.tools import reference
+r5 = reference.ROWS["R5"]
+reference.check_input(r5, reference.load("R5"), reference.row_input(r5)[1])
+tiny = reference.Row("T", "FM+PL 16 ch", 1.536e6, 3840, 4353, 2, mode="FM",
+                     n_channels=16, cfg=(("enable_pl", True),))
+a1, st = reference.run_port(tiny, "cpu", "step")
+a2, _ = reference.run_port(tiny, "cpu", "scan")
+assert reference.compare(a1, a2).ok and st["ms"] is None
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "ka9q_sdr_tpu")
                for m, mod in sys.modules.items() if mod is not None)
 print("ok")

@@ -278,3 +278,46 @@ def test_shard_fft_bank_matches_jax(mode):
     assert all(_equal(a, b) for a, b in zip(
         jax.tree_util.tree_leaves(t.state),
         jax.tree_util.tree_leaves(rep.state)))
+
+
+def _assert_pcm_close(a, b, lsb, rms_dbfs=None):
+    d = a.numpy().astype(np.int64) - np.asarray(b).astype(np.int64)
+    assert np.abs(d).max() <= lsb, np.abs(d).max()
+    if rms_dbfs is not None:
+        rms = np.sqrt(np.mean(d.astype(np.float64) ** 2)) / 32768.0
+        assert rms <= 10 ** (rms_dbfs / 20), rms
+
+
+@pytest.mark.parametrize("mode", ["FM", "CAM", "ISB"])
+def test_shard_fft_active_is_the_replicated_step(mode):
+    """process_active on a shard_fft bank runs the replicated per-shard
+    step, as JAX compiles a mesh bank's ``bank_step_active`` whatever
+    shard_fft says: bit-equal to the replicated mesh bank (PCM, indices,
+    diag and state) over 6 blocks with a retune, and against JAX's
+    ``ChannelBank(mesh, shard_fft=True).process_active`` the same indices
+    and PCM within the replicated bank's bounds (the audio's 3e-5, 1 LSB;
+    the AGC modes PARITY.md #9 from block 1, the cold start)."""
+    freqs = _freqs(N_CH)
+    j, t, rep = _jax_bank(mode), _port_bank(mode), _port_bank(mode, False)
+    for blk, x in enumerate(_blocks(6, seed=23)):
+        if blk == 2:
+            for bank in (j, t, rep):
+                bank.tune(3, freqs[1] + 1000.0)
+        got = t.process_active(x, max_active=4, n_valid=15)
+        want = rep.process_active(x, max_active=4, n_valid=15)
+        assert _equal(got[0], want[0]) and _equal(got[1], want[1])
+        assert all(_equal(got[2][k], want[2][k]) for k in want[2])
+        jp, ji, _ = j.process_active(x, max_active=4, n_valid=15)
+        assert got[1].tolist() == np.asarray(ji).tolist()
+        if mode == "FM":
+            _assert_pcm_close(got[0], jp, 1)
+        elif blk >= 1:
+            _assert_pcm_close(got[0], jp, 8, -85.0)
+    assert (got[1] >= 0).sum() == 4
+    assert all(_equal(a, b) for a, b in zip(
+        jax.tree_util.tree_leaves(t.state),
+        jax.tree_util.tree_leaves(rep.state)))
+    _assert_state_close(
+        state_to_numpy(TM.gather_bank_state(t.state)),
+        jax.tree_util.tree_map(np.asarray, tree_r2c(j.state, j._template)),
+        3e-5, 1e-3)
