@@ -103,13 +103,17 @@ drives the channel bank through its user entry points:
   gate's cost, a due block against a not-due one;
 - the runner's rows at full width against outputs the JAX package made
   (``ka9q_sdr_tpu_torch/data/reference``, ``tools/reference.py``): R1
-  (the FM+PL 8192-channel long block), R2 (FM+PL 4096, one block a call
-  and 8-block scans), R3 (the FM:5120 + USB:512 + CAM:512 MultiBank), R4
-  (CAM 4096 wide) and R5 (CAM 2048 at 24.576 Msps, scans): each input's
-  SHA-256, then the captured calls held to the module's bounds (integer
-  state bit-equal, flags, kept PCM within PARITY.md #9, audio RMS within
-  0.1 dB), the fill and AGC launches and the replays counted, and the
-  device ms a block.
+  (the FM+PL 8192-channel long block), R2, R6 and R7 (FM+PL 4096, 5120
+  and 6144, one block a call and 8-block scans), R3 and R9 (the FM:5120 /
+  FM:3072 + USB:512 + CAM:512 MultiBanks), R4 (CAM 4096 wide), R5 (CAM
+  2048 at 24.576 Msps, scans), R8 (FM+PL 2048 on long blocks) and M1
+  (R2 with its carriers FM-modulated by a voice tone and a PL tone):
+  each input's SHA-256, then the captured calls held to the module's
+  bounds (integer state bit-equal, flags, kept PCM within PARITY.md #9,
+  audio RMS within 0.1 dB, each FM carrier's measured PL tone in the
+  reference's bin or the next), the fill and AGC launches and the
+  replays counted, M1's measured tones within 1 Hz of its PL tones, and
+  the device ms a block.
 
 Times come from CUDA events.  Phases print their
 findings line by line.
@@ -3705,37 +3709,53 @@ def phase_shard_fft_long(bank_mod, mesh_mod, demod_fm, ffill, smi,
 #: phase 35: CUDA-event calls timed a row after its checked blocks
 REF_ITERS = 5
 #: the fill and AGC launches a block of each reference row's path: FM 2
-#: fills, CAM 1 AGC, the mixed row's FM group 2 fills and its USB and CAM
+#: fills, CAM 1 AGC, the mixed rows' FM group 2 fills and its USB and CAM
 #: groups an AGC each
 REF_LAUNCHES = {"R1": (2, 0), "R2": (2, 0), "R3": (2, 2), "R4": (0, 1),
-                "R5": (0, 1)}
+                "R5": (0, 1), "R6": (2, 0), "R7": (2, 0), "R8": (2, 0),
+                "R9": (2, 2), "M1": (2, 0)}
 
 
 def phase_reference(ref_mod, smi):
-    """The runner's rows R1-R5 against the JAX package's reference outputs
-    (``ka9q_sdr_tpu_torch/data/reference``, ``tools/reference.py``): each
-    row's input made again and its SHA-256 held to the file's, its K
-    blocks through the port's captured calls (``process_i16_pcm`` one
-    block a call, ``process_scan_i16(pcm_out=True)`` in chunks of 8,
-    ``MultiBank.process``) with the fill and AGC launched as the path needs
-    and one replay a call, every bound of tools/reference.py held (integer
-    state bit-equal; flags; kept PCM within PARITY.md #9; audio RMS within
-    0.1 dB); per row the worst LSB, the RMS error, the flags that differ
-    and the device ms a block by CUDA events."""
+    """The runner's rows R1-R9 and the modulated row M1 against the JAX
+    package's reference outputs (``ka9q_sdr_tpu_torch/data/reference``,
+    ``tools/reference.py``): each row's input made again (the next row's
+    on a host thread while the card runs this one) and its SHA-256 held
+    to the file's, its K blocks through the port's captured calls
+    (``process_i16_pcm`` one block a call, ``process_scan_i16(pcm_out=
+    True)`` in chunks of 8, ``MultiBank.process``) with the fill and AGC
+    launched as the path needs and one replay a call, every bound of
+    tools/reference.py held (integer state bit-equal; flags; kept PCM
+    within PARITY.md #9; audio RMS within 0.1 dB; the FM carriers'
+    measured PL tone in the reference's bin or the next); M1's measured
+    tones within 1 Hz of the PL tones that modulate it; per row the worst
+    LSB, the RMS error, the flags that differ, the PL readings equal and
+    one bin away, M1's tones and the device ms a block by CUDA events."""
     import gc
+    from concurrent.futures import ThreadPoolExecutor
 
     print("phase 35: the runner's rows against the JAX package's reference "
           f"outputs ({', '.join(ref_mod.ROWS)}; bounds: integer state "
           f"bit-equal, flags equal, kept PCM <= {ref_mod.PCM_LSB} LSB and "
           f"<= {ref_mod.PCM_RMS_DBFS:g} dBFS, RMS within {ref_mod.RMS_DB} dB "
-          "above -90 dBFS)", flush=True)
+          "above -90 dBFS, an FM carrier's PL tone in the reference's bin "
+          "or one PL bin (1500 / 16384 Hz) away)", flush=True)
     t0 = time.perf_counter()
     rows = []
-    for name, row in ref_mod.ROWS.items():
-        ref = ref_mod.load(name)
-        t_in = time.perf_counter()
+
+    def made(row):
+        t = time.perf_counter()
         freqs, x = ref_mod.row_input(row)
-        t_in = time.perf_counter() - t_in
+        return freqs, x, time.perf_counter() - t
+
+    items = list(ref_mod.ROWS.items())
+    pool = ThreadPoolExecutor(1)
+    ahead = pool.submit(made, items[0][1])
+    for i, (name, row) in enumerate(items):
+        ref = ref_mod.load(name)
+        freqs, x, t_in = ahead.result()
+        if i + 1 < len(items):
+            ahead = pool.submit(made, items[i + 1][1])
         sha = ref_mod.input_sha256(x)
         if not check(sha == ref["sha256"], f"{name}: the input made here "
                      f"({t_in:.1f} s on the host) has the reference's "
@@ -3760,18 +3780,33 @@ def phase_reference(ref_mod, smi):
             check(rep.ok, f"{rep.summary()}; "
                   + ("not measured" if ms is None else f"{ms:.4f} ms")
                   + f" a block by CUDA events [{smi}]")
+            tones = "—"
+            if row.tones:
+                want = [t[2] for t in row.tones]
+                check(rep.pl_end is not None and all(
+                    abs(g - w) <= ref_mod.PL_TOL_HZ
+                    for g, w in zip(rep.pl_end, want)),
+                    f"{name} {call}: the carriers' measured PL tones "
+                    f"{rep.pl_end} Hz are within {ref_mod.PL_TOL_HZ} Hz of "
+                    f"{want}")
+                tones = " / ".join(f"{v:.4f}" for v in rep.pl_end)
+            pl = ("not recorded",) * 2 if rep.pl_end is None else (
+                rep.pl_equal, len(rep.pl_one_bin))
             rows.append((name, call, max(rep.lsb), max(rep.lsb_out),
                          max(rep.pcm_rms_dbfs), rep.flags_differ[0],
                          sum(f for f in rep.flags_differ[1:] if f >= 0),
                          not rep.state_differ, max(rep.rms_db),
-                         max(rep.rms_db_out), ms))
+                         max(rep.rms_db_out)) + pl + (tones, ms))
             del arrays
         del x, ref
         gc.collect()
+    pool.shutdown()
     print(f"  summary [{smi}]: row | call | kept PCM worst LSB in the "
           "bounds' domain | outside it | kept PCM difference RMS dBFS | "
           "flags differing in block 0 | later | integer state equal | audio "
-          "RMS worst dB in the domain | outside it | ms a block", flush=True)
+          "RMS worst dB in the domain | outside it | PL readings equal on "
+          "the carriers | one bin away | M1's measured tones Hz | ms a "
+          "block", flush=True)
     for r in rows:
         print("  | " + " | ".join(f"{v:.4f}" if isinstance(v, float) else
                                   str(v) for v in r) + " |", flush=True)

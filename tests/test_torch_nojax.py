@@ -10,7 +10,7 @@ an Opus round trip (where libopus is present), the sharded bank, the
 distributed FFT and ``bankd --mesh`` on CPU shards, the stage profile, the
 ``utils`` re-exports, a notch block, two blocks of ``dryrun.entry``, a
 tiny ``--cpu`` pass of the benchmark runner (``bench``) and the reference
-comparator (``tools.reference``: R5's input hash, a tiny row),
+comparator (``tools.reference``: R5's and M1's input hashes, a tiny row),
 on the CPU in a subprocess where ``import jax`` and ``import ka9q_sdr_tpu``
 fail."""
 
@@ -200,8 +200,10 @@ for _ in range(2):
     est, eaudio, ediag = efn(est, ex)
 assert eaudio.shape == (16, 120) and bool(torch.isfinite(eaudio).all())
 from ka9q_sdr_tpu_torch.tools import reference
-r5 = reference.ROWS["R5"]
-reference.check_input(r5, reference.load("R5"), reference.row_input(r5)[1])
+for name in ("R5", "M1"):
+    row = reference.ROWS[name]
+    reference.check_input(row, reference.load(name),
+                          reference.row_input(row)[1])
 tiny = reference.Row("T", "FM+PL 16 ch", 1.536e6, 3840, 4353, 2, mode="FM",
                      n_channels=16, cfg=(("enable_pl", True),))
 a1, st = reference.run_port(tiny, "cpu", "step")

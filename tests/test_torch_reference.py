@@ -1,10 +1,11 @@
 """The runner's rows against reference outputs made by the JAX package, and
 the script that makes them.
 
-``ka9q_sdr_tpu_torch/tools/reference.py`` defines the rows (R1-R5, the
-rows of ``python -m ka9q_sdr_tpu_torch.bench`` at its defaults), what a
-reference file holds and the bounds a run of the port is held to; its
-module docstring states them.  This file holds the JAX side:
+``ka9q_sdr_tpu_torch/tools/reference.py`` defines the rows (R1-R9, the
+rows of ``python -m ka9q_sdr_tpu_torch.bench`` at its defaults, and M1,
+R2 with its carriers FM-modulated), what a reference file holds and the
+bounds a run of the port is held to; its module docstring states them.
+This file holds the JAX side:
 
 - run as a script it writes the files, one process a row so that each
   row's peak memory is its own::
@@ -13,19 +14,26 @@ module docstring states them.  This file holds the JAX side:
 
   (each row through the JAX package's ``ChannelBank.process_i16_pcm`` or
   ``MultiBank.process`` on its CPU backend, K blocks of the row's one
-  input block from a fresh bank);
+  input block from a fresh bank; a modulated row's measured PL tones
+  are checked against the tones that modulate it before its file is
+  written);
 - as tests: the files exist and their geometry is the runner's rows (the
-  runner's own ``_run`` with its row functions recorded); the input
-  hashes of R2, R4 and R5 match inputs made here; R5 through the port on
-  the CPU within the bounds; a small geometry (N = 8192, 16 channels, as
-  tests/test_torch_bankd.py) through this generator with JAX and the
-  comparator with the port in one test, so the machinery itself is held
-  against JAX on every run; and, marked ``slow``, R1-R4 through the port
-  on the CPU.
+  runner's own ``_run`` with its row functions recorded), M1's is R2's
+  and its measured tones are its PL tones; M1's input is R2's noise with
+  carriers that do not step at the block's end; the input hashes of R2,
+  R4-R7, R9 and M1 match inputs made here (R1's and R8's long blocks take
+  17-19 s each, so only ``slow`` and the card check them); R5 through
+  the port on the CPU within the bounds; small geometries (N = 8192, 16
+  channels, as tests/test_torch_bankd.py, and a modulated FM+PL row at
+  N = 16384 whose PL FFT fires) through this generator with JAX and the
+  comparator with the port, so the machinery and the PL tone's bound are
+  held against JAX on every run; and, marked ``slow``, R1-R4, R6-R9 and
+  M1 through the port on the CPU.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import resource
 import sys
@@ -57,7 +65,15 @@ SMALL_ROWS = {r.name: r for r in (
           calls=("step", "scan")),
     R.Row("S-MIX", "MultiBank FM:8 + USB:4 + CAM:4", **SMALL, K=12,
           groups=(("FM", 8), ("USB", 4), ("CAM", 4))),
+    # M1's tones at N = 16384 (L_dec 960, as at 20 ms): the PL FFT fires
+    # after block 17
+    R.Row("S-FMM", "FM+PL 16 ch, carriers FM-modulated", samprate=384e3,
+          L=7680, M=8705, K=20, mode="FM", n_channels=16,
+          cfg=(("enable_pl", True),), calls=("step", "scan"),
+          tones=R.M1_TONES),
 )}
+#: the runner's rows (a row with tones is none)
+RUNNER_ROWS = [n for n, r in R.ROWS.items() if not r.tones]
 
 
 def generate(row: R.Row, freqs=None, x=None) -> dict:
@@ -71,19 +87,20 @@ def generate(row: R.Row, freqs=None, x=None) -> dict:
         mb = JB.MultiBank(list(freqs), samprate=row.samprate, L=row.L,
                           M=row.M)
         for _ in range(row.K):
-            outs = mb.process(x)
-            rec.add(np.concatenate([np.asarray(a) for a, _ in outs]),
-                    np.concatenate([np.asarray(R.diag_flags(d))
-                                    for _, d in outs]))
-        return rec.arrays(mb.states)
-    cfg = JB.make_bank_config(row.n_channels, row.mode,
-                              samprate=row.samprate, L=row.L, M=row.M,
-                              **dict(row.cfg))
-    bank = JB.ChannelBank(cfg, freqs)
-    for _ in range(row.K):
-        pcm, diag = bank.process_i16_pcm(x)
-        rec.add(np.asarray(pcm), np.asarray(R.diag_flags(diag)))
-    return rec.arrays([bank.state])
+            rec.add_groups(mb.process(x))
+        arrays = rec.arrays(mb.states)
+    else:
+        cfg = JB.make_bank_config(row.n_channels, row.mode,
+                                  samprate=row.samprate, L=row.L, M=row.M,
+                                  **dict(row.cfg))
+        bank = JB.ChannelBank(cfg, freqs)
+        for _ in range(row.K):
+            rec.add_diag(*bank.process_i16_pcm(x))
+        arrays = rec.arrays([bank.state])
+    if row.tones:       # the input exercises the PL chain, or no file
+        print(f"{row.name}: measured PL tones "
+              f"{R.check_pl_tones(row, arrays)}", flush=True)
+    return arrays
 
 
 def write(name: str) -> None:
@@ -135,7 +152,7 @@ def _runner_rows(monkeypatch) -> list:
     return seen
 
 
-@pytest.mark.parametrize("name", list(R.ROWS))
+@pytest.mark.parametrize("name", RUNNER_ROWS)
 def test_reference_file_is_a_runner_row(name, monkeypatch):
     """The file exists, was made from the row's geometry and K by the JAX
     package, and the row is one the runner measures at its defaults."""
@@ -157,10 +174,45 @@ def test_reference_file_is_a_runner_row(name, monkeypatch):
     assert set(R.carrier_channels(row)) <= set(ref["kept"].tolist())
     assert ref["pcm"].shape[:2] == (K, len(ref["kept"]))
     assert ref["pcm"].dtype == np.int16
+    _pl_recorded(row, ref)
+
+
+def _pl_recorded(row, ref):
+    """Where the bank measures PL tones the file records them (R1 and R2
+    were made before the record held them), at the row's bin width."""
+    pl = dict(row.cfg).get("enable_pl", False) and row.name not in (
+        "R1", "R2")
+    assert ("plfreq_end" in ref) == pl
+    if pl:
+        assert ref["plfreq"].shape == (row.K, len(ref["kept"]))
+        assert ref["plfreq_end"].shape == (len(ref["kept"]),)
+        assert float(ref["pl_bin"]) == R.pl_bin(row) == 1500.0 / 16384
+
+
+def test_modulated_reference_file():
+    """M1's file: made by the JAX package from M1's geometry and K, and in
+    it each carrier's measured PL tone is within 1 Hz of the tone that
+    modulates it after both firings (blocks 17 and 35) and at the end."""
+    row = R.ROWS["M1"]
+    ref = R.load("M1")
+    assert ref["meta"]["geometry"] == row.geometry()
+    assert ref["meta"]["K"] == row.K == 36
+    assert "--write M1" in ref["meta"]["command"]
+    assert ref["flagged"].all() and ref["rms"].shape == (36, 4096)
+    assert np.array_equal(ref["kept"], R.kept_channels(row))
+    assert np.array_equal(ref["first_pcm"], R.first_bound(row)[0])
+    _pl_recorded(row, ref)
+    assert R.pl_firings(row) == [17, 35]
+    R.check_pl_tones(row, ref)
+    car = [list(ref["kept"]).index(c) for c in ref["carriers"]]
+    assert np.all(np.abs(ref["plfreq_end"][car] - [100, 150, 200]) <= 1.0)
+    assert np.isnan(ref["plfreq"][:17, car]).all()
 
 
 @pytest.mark.parametrize("name,lag", [("R1", 1), ("R2", 2), ("R3", 2),
-                                      ("R4", 2), ("R5", 2)])
+                                      ("R4", 2), ("R5", 2), ("R6", 2),
+                                      ("R7", 2), ("R8", 1), ("R9", 2),
+                                      ("M1", 2)])
 def test_first_bound_follows_the_audio_filter(name, lag):
     """An FM carrier's audio is bound from block 0, an AGC carrier's PCM
     from block 1 and its RMS from block 0, a noise channel's from block 1,
@@ -178,17 +230,55 @@ def test_first_bound_follows_the_audio_filter(name, lag):
 
 
 def test_reference_files_are_small():
-    """At most 4 MB for the five files together."""
-    total = sum((R.REF_DIR / f"{n}.npz").stat().st_size for n in R.ROWS)
+    """At most 4 MB for every file under data/reference/ together, each
+    row's among them."""
+    files = sorted(R.REF_DIR.glob("*.npz"))
+    assert {f.stem for f in files} >= set(R.ROWS)
+    total = sum(f.stat().st_size for f in files)
     assert total <= 4_000_000, total
 
 
-@pytest.mark.parametrize("name", ["R2", "R4", "R5"])
+@pytest.mark.parametrize("name", ["R2", "R4", "R5", "R6", "R7", "R9", "M1"])
 def test_reference_input_hash(name):
     """The input made here is the one the reference was made from."""
     row = R.ROWS[name]
     _, x = R.row_input(row)
     R.check_input(row, R.load(name), x)
+
+
+def test_m1_input_is_r2s_noise_with_modulated_carriers():
+    """M1 is R2's geometry and channels; its noise is R2's bit for bit
+    (R2's input is that noise plus bench_inputs' carriers); each carrier's
+    phase is the closed-form integral of its instantaneous frequency and
+    makes whole cycles in a block, so the block repeated does not step."""
+    m1, r2 = R.ROWS["M1"], R.ROWS["R2"]
+    assert m1.geometry() == r2.geometry() and m1.calls == r2.calls
+    assert len(m1.tones) == len(R.carrier_channels(m1)) == 3
+    f2, x2 = R.row_input(r2)
+    y = R.bench_noise(r2.L)
+    tt = np.arange(r2.L) / r2.samprate
+    for ch in (3, 2048, 4091):
+        y += 0.2 * np.exp(2j * np.pi * f2[ch] * tt)
+    assert np.array_equal(R.quantise_i16(y), x2)
+    fs, L = int(m1.samprate), m1.L
+    n = L - 64 + np.arange(129)         # across the end of the block
+    for ch, (fa, da, fp, dp) in zip(R.carrier_channels(m1), m1.tones):
+        ph = R.fm_phase(f2[ch], (fa, da, fp, dp), n, fs, L)
+        assert np.array_equal(ph, R.fm_phase(f2[ch], (fa, da, fp, dp),
+                                             n + 3 * L, fs, L))
+        assert np.array_equal(ph[64:], R.fm_phase(
+            f2[ch], (fa, da, fp, dp), np.arange(65), fs, L))
+        # each step, the one from sample L - 1 to the next block's sample 0
+        # too, advances by the instantaneous frequency
+        t = n[:-1] / fs
+        inst = f2[ch] + da * np.cos(2 * np.pi * fa * t) + dp * np.cos(
+            2 * np.pi * fp * t)
+        step = np.diff(ph)
+        want = 2 * np.pi * inst / fs
+        assert np.allclose(np.angle(np.exp(1j * (step - want))), 0,
+                           atol=1e-6)
+    with pytest.raises(ValueError, match="no whole number of cycles"):
+        R.fm_phase(f2[3], (1025, 3000, 100, 500), n, fs, L)
 
 
 def test_check_input_names_the_input():
@@ -225,6 +315,16 @@ def test_main_needs_a_card_without_cpu(monkeypatch):
     assert e.value.code == 2
 
 
+@functools.cache
+def _small_ref(name):
+    return generate(SMALL_ROWS[name])
+
+
+@functools.cache
+def _small_run(name, call):
+    return R.run_port(SMALL_ROWS[name], CPU, call)[0]
+
+
 @pytest.mark.parametrize("name,call", [(n, c) for n, r in SMALL_ROWS.items()
                                        for c in r.calls])
 def test_small_round_trip(name, call):
@@ -232,8 +332,8 @@ def test_small_round_trip(name, call):
     geometry: within the bounds, and a perturbation of one kept PCM
     sample, one flag or one state word is a breach."""
     row = SMALL_ROWS[name]
-    ref = generate(row)
-    arrays, _ = R.run_port(row, CPU, call)
+    ref = _small_ref(name)
+    arrays = _small_run(name, call)
     rep = R.compare(ref, arrays, name, call)
     assert rep.ok, rep.summary()
     assert len(rep.lsb) == len(rep.lsb_out) == row.K
@@ -249,11 +349,41 @@ def test_small_round_trip(name, call):
         assert not R.compare(ref, bad).ok
 
 
+@pytest.mark.parametrize("call", ["step", "scan"])
+def test_plfreq_bound(call):
+    """The PL tone's bound on the small modulated row: the port measures
+    each carrier's tone within 1 Hz and in the reference's bin; a carrier
+    one bin away is counted and no breach, two bins away (in a block or
+    after the last) or NaN against a tone is a breach."""
+    row = SMALL_ROWS["S-FMM"]
+    ref, arrays = _small_ref("S-FMM"), _small_run("S-FMM", call)
+    rep = R.compare(ref, arrays)
+    assert rep.ok and not rep.pl_one_bin, rep.summary()
+    assert np.all(np.abs(np.asarray(rep.pl_end) - [100, 150, 200]) <= 1.0)
+    assert rep.pl_equal == 3 * (1 + (row.K if call == "step" else
+                                     row.K % R.SCAN_CHUNK))
+    width = float(ref["pl_bin"])
+    car = [list(ref["kept"]).index(c) for c in ref["carriers"]]
+    for key, at in (("plfreq_end", np.s_[car[1]]),
+                    ("plfreq", np.s_[-1, car[1]])):
+        for moved, breach in ((width, False), (2 * width, True),
+                              (np.nan, True)):
+            bad = dict(arrays, **{key: arrays[key].copy()})
+            bad[key][at] += moved
+            got = R.compare(ref, bad)
+            assert got.ok is not breach, (key, moved, got.summary())
+            assert len(got.pl_one_bin) == (not breach)
+    assert "PL tone not recorded" in R.compare(
+        {k: v for k, v in ref.items() if not k.startswith("pl")},
+        arrays).summary()
+
+
 @pytest.mark.slow
-@pytest.mark.parametrize("name", ["R1", "R2", "R3", "R4"])
+@pytest.mark.parametrize("name", ["R1", "R2", "R3", "R4", "R6", "R7", "R8",
+                                  "R9", "M1"])
 def test_rows_port_cpu(name):
-    """R1-R4 through the port on the CPU by their call plans, within the
-    bounds (minutes a row: run by hand, ``-m slow``)."""
+    """R1-R4, R6-R9 and M1 through the port on the CPU by their call plans,
+    within the bounds (minutes a row: run by hand, ``-m slow``)."""
     row = R.ROWS[name]
     ref = R.load(name)
     freqs, x = R.row_input(row)
