@@ -3708,38 +3708,65 @@ def phase_shard_fft_long(bank_mod, mesh_mod, demod_fm, ffill, smi,
 
 #: phase 35: CUDA-event calls timed a row after its checked blocks
 REF_ITERS = 5
-#: the fill and AGC launches a block of each reference row's path: FM 2
-#: fills, CAM 1 AGC, the mixed rows' FM group 2 fills and its USB and CAM
-#: groups an AGC each
+#: the fill and AGC launches a block of each reference row's path, from
+#: its groups' demodulators: FM and FMF 2 fills, an AM or linear group 1
+#: AGC; a mesh row each on every shard.  R3 / R9: FM, USB, CAM; E1: FMF
+#: and nine AM or linear groups; S1: FM on 4 shards
 REF_LAUNCHES = {"R1": (2, 0), "R2": (2, 0), "R3": (2, 2), "R4": (0, 1),
                 "R5": (0, 1), "R6": (2, 0), "R7": (2, 0), "R8": (2, 0),
-                "R9": (2, 2), "M1": (2, 0)}
+                "R9": (2, 2), "M1": (2, 0), "E1": (2, 9), "S1": (8, 0)}
 
 
-def phase_reference(ref_mod, smi):
-    """The runner's rows R1-R9 and the modulated row M1 against the JAX
-    package's reference outputs (``ka9q_sdr_tpu_torch/data/reference``,
-    ``tools/reference.py``): each row's input made again (the next row's
-    on a host thread while the card runs this one) and its SHA-256 held
-    to the file's, its K blocks through the port's captured calls
-    (``process_i16_pcm`` one block a call, ``process_scan_i16(pcm_out=
-    True)`` in chunks of 8, ``MultiBank.process``) with the fill and AGC
-    launched as the path needs and one replay a call, every bound of
-    tools/reference.py held (integer state bit-equal; flags; kept PCM
+def ref_replays(row, call):
+    """The graph replays of a call of the row's plan: one (a bank's or a
+    MultiBank's step, or a scan's chunk); on a mesh one a shard, and a
+    ``shard_fft`` step's chain of three a shard (its scan and active call
+    replay the replicated step, one a shard)."""
+    if not row.mesh:
+        return 1
+    shards, shard_fft = row.mesh
+    return shards * (3 if shard_fft and call == "step" else 1)
+
+
+def phase_reference(ref_mod, smi, cards=False):
+    """The runner's rows R1-R9, the modulated row M1, every mode the runner
+    never runs (E1) and README's 4-shard shard_fft deployment (S1) against
+    the JAX package's reference outputs
+    (``ka9q_sdr_tpu_torch/data/reference``, ``tools/reference.py``): each
+    row's input made again (the next row's on a host thread while the card
+    runs this one) and its SHA-256 held to the file's, its K blocks through
+    the port's captured calls (``process_i16_pcm`` one block a call,
+    ``process_scan_i16(pcm_out=True)`` in chunks of 8,
+    ``MultiBank.process``, ``process_active(64, n_valid=4094)``; S1 on 4
+    shards of the card) with the fill and AGC launched as the path needs
+    and the replays a call the plan makes (``ref_replays``), every bound
+    of tools/reference.py held (integer state bit-equal; flags; kept PCM
     within PARITY.md #9; audio RMS within 0.1 dB; the FM carriers'
-    measured PL tone in the reference's bin or the next); M1's measured
-    tones within 1 Hz of the PL tones that modulate it; per row the worst
-    LSB, the RMS error, the flags that differ, the PL readings equal and
-    one bin away, M1's tones and the device ms a block by CUDA events."""
+    measured PL tone in the reference's bin or the next; E1's carriers'
+    audio tones, ear by ear, in the reference's bin or the next; S1's
+    active sets equal, no padding row); M1's measured tones within 1 Hz
+    of the PL tones that modulate it; per row the worst LSB, the RMS
+    error, the flags that differ, the PL readings equal and one bin away,
+    M1's measured tones, E1's audio tones or S1's active sets, the peak
+    bytes allocated on the first card and the device ms a block by CUDA
+    events.  With `cards` (phase 35c) the mesh rows alone, each shard on
+    a card of its own."""
     import gc
     from concurrent.futures import ThreadPoolExecutor
 
-    print("phase 35: the runner's rows against the JAX package's reference "
-          f"outputs ({', '.join(ref_mod.ROWS)}; bounds: integer state "
+    items = [(n, r) for n, r in ref_mod.ROWS.items()
+             if r.mesh or not cards]
+    where = (f"{MESH_D} cards" if cards else
+             f"the mesh rows on {MESH_D} shards of the card")
+    print(f"phase 35{'c' if cards else ''}: the reference rows against the "
+          f"JAX package's reference outputs ({', '.join(n for n, _ in items)};"
+          f" {where}; bounds: integer state "
           f"bit-equal, flags equal, kept PCM <= {ref_mod.PCM_LSB} LSB and "
           f"<= {ref_mod.PCM_RMS_DBFS:g} dBFS, RMS within {ref_mod.RMS_DB} dB "
           "above -90 dBFS, an FM carrier's PL tone in the reference's bin "
-          "or one PL bin (1500 / 16384 Hz) away)", flush=True)
+          "or one PL bin (1500 / 16384 Hz) away, a carrier's audio tone in "
+          "the reference's bin or the next, active sets equal with no "
+          "padding row)", flush=True)
     t0 = time.perf_counter()
     rows = []
 
@@ -3748,7 +3775,6 @@ def phase_reference(ref_mod, smi):
         freqs, x = ref_mod.row_input(row)
         return freqs, x, time.perf_counter() - t
 
-    items = list(ref_mod.ROWS.items())
     pool = ThreadPoolExecutor(1)
     ahead = pool.submit(made, items[0][1])
     for i, (name, row) in enumerate(items):
@@ -3762,20 +3788,26 @@ def phase_reference(ref_mod, smi):
                      f"SHA-256 {ref['sha256'][:16]}..."):
             continue
         for call in row.calls:
+            if DEV != "cpu":
+                torch.cuda.reset_peak_memory_stats()
             arrays, stats = ref_mod.run_port(row, DEV, call, x=x,
                                              freqs=freqs,
-                                             timing_iters=REF_ITERS)
+                                             timing_iters=REF_ITERS,
+                                             cards=cards)
+            peak = torch.cuda.max_memory_allocated() if DEV != "cpu" \
+                else None
             rep = ref_mod.compare(ref, arrays, name, call)
             fills, agcs = REF_LAUNCHES[name]
             n_calls = (row.K // ref_mod.SCAN_CHUNK + row.K
                        % ref_mod.SCAN_CHUNK) if call == "scan" else row.K
+            replays = n_calls * ref_replays(row, call)
             got = stats["launches"]
             check(got == {"ffill": fills * row.K, "agc": agcs * row.K}
-                  and stats["replays"] == n_calls,
+                  and stats["replays"] == replays,
                   f"{name} {call}: {row.K} blocks launched ffill "
                   f"{got['ffill']}, agc {got['agc']} ({fills} / {agcs} a "
                   f"block) in {stats['replays']} graph replays ({n_calls} "
-                  "calls)")
+                  f"calls, {ref_replays(row, call)} a call)")
             ms = stats["ms"]
             check(rep.ok, f"{rep.summary()}; "
                   + ("not measured" if ms is None else f"{ms:.4f} ms")
@@ -3792,11 +3824,23 @@ def phase_reference(ref_mod, smi):
                 tones = " / ".join(f"{v:.4f}" for v in rep.pl_end)
             pl = ("not recorded",) * 2 if rep.pl_end is None else (
                 rep.pl_equal, len(rep.pl_one_bin))
+            other = "—"
+            if rep.tones is not None:
+                other = (", ".join("/".join(f"{v:g}" for v in t)
+                                   for t in rep.tones)
+                         + f" Hz, {len(rep.tone_one_bin)} one bin away")
+            elif rep.active_differ:
+                used = (arrays["idx"] >= 0).sum(axis=1)
+                other = (f"sets differ in the domain "
+                         f"{sum(rep.active_differ)}, outside "
+                         f"{sum(rep.active_out)}; slots used "
+                         f"{int(used.min())}-{int(used.max())}")
             rows.append((name, call, max(rep.lsb), max(rep.lsb_out),
                          max(rep.pcm_rms_dbfs), rep.flags_differ[0],
                          sum(f for f in rep.flags_differ[1:] if f >= 0),
                          not rep.state_differ, max(rep.rms_db),
-                         max(rep.rms_db_out)) + pl + (tones, ms))
+                         max(rep.rms_db_out)) + pl + (tones, other, peak,
+                                                      ms))
             del arrays
         del x, ref
         gc.collect()
@@ -3805,12 +3849,15 @@ def phase_reference(ref_mod, smi):
           "bounds' domain | outside it | kept PCM difference RMS dBFS | "
           "flags differing in block 0 | later | integer state equal | audio "
           "RMS worst dB in the domain | outside it | PL readings equal on "
-          "the carriers | one bin away | M1's measured tones Hz | ms a "
-          "block", flush=True)
+          "the carriers | one bin away | M1's measured tones Hz | E1's "
+          "carriers' audio tones, S1's active sets | peak allocated B (card "
+          "0) | ms a block",
+          flush=True)
     for r in rows:
         print("  | " + " | ".join(f"{v:.4f}" if isinstance(v, float) else
                                   str(v) for v in r) + " |", flush=True)
-    print(f"  phase 35 took {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"  phase 35{'c' if cards else ''} took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main():
@@ -3989,6 +4036,12 @@ def main():
             phase_shard_fft_long(bank_mod, mesh_mod, demod_fm, ffill, smi,
                                  cards=True)
         phase_reference(reference, smi)
+        if torch.cuda.device_count() >= MESH_D:
+            phase_reference(reference, smi, cards=True)
+        else:
+            print(f"phase 35c: not run: S1 on {MESH_D} cards needs "
+                  f"{MESH_D}, the machine has {torch.cuda.device_count()} "
+                  "(not a failure)", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

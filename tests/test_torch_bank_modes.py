@@ -1,6 +1,9 @@
-"""Parity of the port's AM, USB, ISB and CAM channel banks against the JAX
+"""Parity of the port's channel banks of every mode against the JAX
 package's ``ChannelBank`` on the CPU, both started from one state through
-``interop.state_from_jax``.
+``interop.state_from_jax``: AM, USB, ISB and CAM, and the modes no other
+bank test runs, FMF, DSB, CISB, AME, CWU, CWL, LSB and IQ (each with its
+tone check); and a small ``MultiBank`` of LSB, IQ, CWL and FMF groups
+against the JAX MultiBank, both from a cold start.
 
 Geometry as tests/test_torch_bank.py: 8 channels at fs = 1.536 Msps,
 L = 30720, M = 34817 (N = 65536, decimate 32), so each channel has the
@@ -20,11 +23,16 @@ Tolerances, with their reasons:
   difference of at most -85 dBFS RMS.  The port gathers bins directly where
   the JAX package takes its aligned chunk-row path, the FFT libraries
   differ, and the AGC (and for CAM the PLL) feed float32 rounding back.
-- k/r/dr, the NCO words, the AGC hang counts, and for CAM ``pll_lock``,
-  ``lock_count``, ``fft_samples`` and ``delta_f``: exact.
+- k/r/dr, the NCO words, the AGC hang counts, and for the PLL modes
+  ``pll_lock``, ``lock_count``, ``fft_samples`` and ``delta_f``, FM's
+  ``snr_below``: exact.
+- the MultiBank, from a cold start: the PCM from the second block on (the
+  first block's AGC transient, above), every group's integer state exact.
 - active-channel sets: equal; rows matched by channel index, within the
   PCM bounds.
 """
+
+import enum
 
 import numpy as np
 import pytest
@@ -52,24 +60,47 @@ def assert_pcm_close(a, b):
     assert rms <= 10 ** (-85 / 20), rms
 
 
-def _i16_blocks(n_blocks, carriers, seed=5):
+def _signal(n_blocks, carriers, seed=5):
     """carriers: (channel, offset Hz, kind) with kind 'am' (1 kHz AM on a
-    carrier) or 'tone' (an unmodulated carrier)."""
+    carrier), 'dsb' (its sidebands alone, the carrier suppressed), 'fm' (a
+    carrier FM-modulated by a 1 kHz tone at 3 kHz peak deviation) or
+    'tone' (an unmodulated carrier).  Yields each block as (L,) complex."""
     rng = np.random.default_rng(seed)
-    out = []
     for b in range(n_blocks):
         t = (b * LW + np.arange(LW)) / FS
         sig = 0.003 * (rng.standard_normal(LW) + 1j * rng.standard_normal(LW))
         for j, (ch, off, kind) in enumerate(carriers):
-            env = 1.0 + 0.5 * np.cos(2 * np.pi * 1000 * t) if kind == "am" \
-                else 1.0
+            mod = 2 * np.pi * 1000 * t
+            env = {"am": 1.0 + 0.5 * np.cos(mod), "dsb": np.cos(mod)}.get(
+                kind, 1.0)
+            ph = 3.0 * np.sin(mod) if kind == "fm" else 0.0
             sig = sig + 0.1 * env * np.exp(
-                1j * (2 * np.pi * (FREQS[ch] + off) * t + j))
+                1j * (2 * np.pi * (FREQS[ch] + off) * t + ph + j))
+        yield sig
+
+
+def _i16_blocks(n_blocks, carriers, seed=5):
+    """_signal's blocks as (L, 2) int16."""
+    out = []
+    for sig in _signal(n_blocks, carriers, seed):
         x = np.empty((LW, 2), np.int16)
         x[:, 0] = np.clip(sig.real * 32767, -32768, 32767)
         x[:, 1] = np.clip(sig.imag * 32767, -32768, 32767)
         out.append(x)
     return out
+
+
+def _plain(v):
+    """A config as nested tuples of plain values: each package's enums (the
+    FM audio filter's ``FilterType``) by their value, arrays by their
+    elements."""
+    if isinstance(v, enum.Enum):
+        return v.value
+    if isinstance(v, tuple):
+        return tuple(_plain(x) for x in v)
+    if isinstance(v, (np.ndarray, torch.Tensor)):
+        return tuple(np.asarray(v).ravel().tolist())
+    return v
 
 
 def _jax_state(jbank):
@@ -83,6 +114,9 @@ def _assert_discrete_equal(tn, jn):
     for a, b in zip(tn.nco, jn.nco):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
+    if type(jn.demod).__name__ == "FMState":
+        np.testing.assert_array_equal(tn.demod.snr_below, jn.demod.snr_below)
+        return
     np.testing.assert_array_equal(tn.demod.agc.hangcount,
                                   jn.demod.agc.hangcount)
     if type(jn.demod).__name__ == "LinearState":
@@ -96,7 +130,7 @@ def _run(mode, carriers, n_blocks, n_active=0):
     tcfg = TB.make_bank_config(B, mode, samprate=FS, L=LW, M=M)
     np.testing.assert_array_equal(tcfg.response, jcfg.response)
     np.testing.assert_array_equal(tcfg.base_idx, jcfg.base_idx)
-    assert tuple(tcfg.demod_cfg) == tuple(jcfg.demod_cfg)
+    assert _plain(tcfg.demod_cfg) == _plain(jcfg.demod_cfg)
     jbank = JB.ChannelBank(jcfg, FREQS)
     tbank = TB.ChannelBank(tcfg, FREQS, device="cpu")
     js = _jax_state(jbank)
@@ -179,3 +213,94 @@ def test_cam_bank_acquires():
         assert abs(tn.demod.delta_f[ch] - off) <= BIN
         assert tn.demod.fft_samples[ch] < 35 * 30
     assert pcm.shape == (40, B, 960)
+
+
+#: the modes no other bank test runs: (carriers (channel, offset Hz,
+#: kind), blocks, the tone each carrier gives in each ear, Hz).  The PLL
+#: modes run 40 blocks, past their first acquisition (block 35 for CISB's
+#: and AME's 2048-sample ring, 34 for DSB's squared 4096-sample one), on
+#: bin-centred offsets inside the search (DSB's squared: half bins), but
+#: CISB's carriers sit on their channels: its PLL acquires on the ISB
+#: (cross-conjugated, filter.c) output, where a carrier off the centre has
+#: a mirror image and the search may take either, in both packages alike;
+#: LSB's channels also carry a tone 1.5 kHz above, in the other sideband
+MODE_CASES = {
+    "FMF": ([(1, 0.0, "fm"), (5, 0.0, "fm")], 6, (1000,)),
+    "DSB": ([(2, 23 * BIN / 2, "dsb"), (6, -81 * BIN / 2, "dsb")], 40,
+            (1000,)),
+    "CISB": ([(1, 0.0, "am"), (4, 0.0, "am")], 40,
+             (1000, 1000)),
+    "AME": ([(3, -29 * BIN, "am"), (6, 44 * BIN, "am")], 40, (1000,)),
+    "CWU": ([(0, 0.0, "tone"), (5, 0.0, "tone")], 6, (700,)),
+    "CWL": ([(2, 0.0, "tone"), (7, 0.0, "tone")], 6, (700,)),
+    "LSB": ([(1, -1000.0, "tone"), (1, 1500.0, "tone"), (4, -1000.0, "tone"),
+             (4, 1500.0, "tone")], 6, (1000,)),
+    "IQ": ([(3, 1000.0, "tone"), (6, 1000.0, "tone")], 6, (1000, 1000)),
+}
+
+
+@pytest.mark.parametrize("mode", list(MODE_CASES))
+def test_mode_bank(mode):
+    """The bank against the JAX bank block by block (PCM within PARITY.md
+    #9, integer state exact), and each carrier's tone in each ear from the
+    last 4 blocks: CWU and CWL at their 700 Hz pitch, LSB its lower
+    sideband's 1 kHz and not the upper's 1.5 kHz, IQ's 1 kHz in I and Q,
+    FMF its 1 kHz, and DSB, CISB and AME after the first acquisition, with
+    each carrier's offset found within a search bin."""
+    carriers, n_blocks, tones = MODE_CASES[mode]
+    pcm, _, tn = _run(mode, carriers, n_blocks)
+    stereo = len(tones) == 2
+    assert pcm.shape == (n_blocks, B, 960) + ((2,) if stereo else ())
+    for ch in sorted({c for c, _, _ in carriers}):
+        rows = pcm[-4:, ch]
+        ears = [rows[..., e] for e in range(2)] if stereo else [rows]
+        for ear, want in zip(ears, tones):
+            assert abs(_tone_hz(np.concatenate(ear)) - want) < 10, (ch, want)
+        if mode == "LSB":
+            spec = np.abs(np.fft.rfft(np.concatenate(rows).astype(float)))
+            assert spec[80] > 100 * spec[120]       # 1000 Hz against 1500
+    if n_blocks == 40:
+        for ch, off, _ in carriers:
+            assert abs(tn.demod.delta_f[ch] - off) <= BIN, (ch, off)
+            assert tn.demod.fft_samples[ch] < 35 * 30
+
+
+#: the small MultiBank: four of the modes above, one stereo (IQ)
+MB_GROUPS = (("LSB", (1, 2)), ("IQ", (0, 5)), ("CWL", (3, 4)),
+             ("FMF", (6, 7)))
+MB_CARRIERS = [(2, -1000.0, "tone"), (5, 1000.0, "tone"), (3, 0.0, "tone"),
+               (7, 0.0, "fm")]
+
+
+def test_multibank_modes():
+    """LSB, IQ, CWL and FMF groups in one MultiBank (float I/Q in, one
+    master FFT) against the JAX MultiBank from a cold start over 8 blocks:
+    every group's PCM from the second block on within PARITY.md #9 (IQ's
+    stereo ear by ear), its integer state exact, and each group's carrier
+    its tone (IQ in both ears)."""
+    from ka9q_sdr_tpu_torch.io.pcm import scaleclip_int16
+
+    groups = [(m, [FREQS[c] for c in chs]) for m, chs in MB_GROUPS]
+    jmb = JB.MultiBank(groups, samprate=FS, L=LW, M=M)
+    tmb = TB.MultiBank(groups, samprate=FS, L=LW, M=M, device="cpu")
+    pcm = [[] for _ in groups]
+    for b, sig in enumerate(_signal(8, MB_CARRIERS)):
+        x = np.stack([sig.real, sig.imag], axis=-1).astype(np.float32)
+        for g, ((ja, _), (ta, _)) in enumerate(zip(jmb.process(x),
+                                                   tmb.process(x))):
+            jp = scaleclip_int16(np.asarray(ja))
+            tp = scaleclip_int16(ta.numpy())
+            assert tp.shape == jp.shape
+            if b:
+                assert_pcm_close(tp, jp)
+            pcm[g].append(tp)
+    assert pcm[1][0].shape == (2, 960, 2)           # IQ: stereo
+    for js, ts in zip(jmb.states, tmb.states):
+        _assert_discrete_equal(state_to_numpy(ts), jax.tree_util.tree_map(
+            np.asarray, js))
+    for (_, chs), rows, (ch, _, _), want in zip(
+            MB_GROUPS, pcm, MB_CARRIERS, (1000, 1000, 700, 1000)):
+        rows = np.stack(rows[-4:])[:, chs.index(ch)]
+        ears = [rows[..., e] for e in range(2)] if rows.ndim == 3 else [rows]
+        for ear in ears:
+            assert abs(_tone_hz(np.concatenate(ear)) - want) < 10, ch

@@ -10,7 +10,9 @@ an Opus round trip (where libopus is present), the sharded bank, the
 distributed FFT and ``bankd --mesh`` on CPU shards, the stage profile, the
 ``utils`` re-exports, a notch block, two blocks of ``dryrun.entry``, a
 tiny ``--cpu`` pass of the benchmark runner (``bench``) and the reference
-comparator (``tools.reference``: R5's and M1's input hashes, a tiny row),
+comparator (``tools.reference``: R5's and M1's input hashes, a tiny
+row, a tiny multi-mode MultiBank row with stereo groups and tone records,
+and a tiny padded mesh row on CPU shards with its active call),
 on the CPU in a subprocess where ``import jax`` and ``import ka9q_sdr_tpu``
 fail."""
 
@@ -209,6 +211,19 @@ tiny = reference.Row("T", "FM+PL 16 ch", 1.536e6, 3840, 4353, 2, mode="FM",
 a1, st = reference.run_port(tiny, "cpu", "step")
 a2, _ = reference.run_port(tiny, "cpu", "scan")
 assert reference.compare(a1, a2).ok and st["ms"] is None
+modes = reference.Row("TM", "ISB:2 + IQ:2 + CWL:2", 1.536e6, 30720, 34817, 8,
+                      groups=(("ISB", 2), ("IQ", 2), ("CWL", 2)),
+                      signals=True, kept="carriers", pcm_blocks=(0, 7))
+am, _ = reference.run_port(modes, "cpu", "step")
+assert am["ears"].tolist() == [2, 2, 1] and am["pcm"].shape == (2, 5, 960)
+assert reference.compare(am, am).ok and am["tone"][0].tolist() == [240, 160]
+mesh = reference.Row("TS", "FM 6 ch on 4 shards", 1.536e6, 3840, 4353, 2,
+                     mode="FM", n_channels=6, calls=("step", "active"),
+                     mesh=(4, True), max_active=8)
+m1, _ = reference.run_port(mesh, "cpu", "step")
+m2, _ = reference.run_port(mesh, "cpu", "active")
+assert m1["rms"].shape == (2, 6) and m2["idx"].shape == (2, 8)
+assert m2["idx"].max() < 6 and m1["state.g0.k"].shape == (8,)
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "ka9q_sdr_tpu")
                for m, mod in sys.modules.items() if mod is not None)
 print("ok")
