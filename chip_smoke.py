@@ -1396,8 +1396,8 @@ def timing_split(err):
 
 def print_split(label, split, smi):
     parts = ", ".join(f"{k} {split[k]:.3f}" for k in
-                      ("read", "poll", "step", "copy", "wait", "emit",
-                       "status"))
+                      ("read", "poll", "step", "put", "launch", "copy",
+                       "wait", "emit", "status"))
     print(f"  {label}: {split['total']:.3f} ms/block wall over "
           f"{split['blocks']} blocks ({parts} ms) [{smi}]", flush=True)
 

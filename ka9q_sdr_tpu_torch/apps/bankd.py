@@ -33,10 +33,15 @@ What differs from the JAX daemon:
   (the distributed master FFT): 3.12 ms a 4096-channel block on 4 H100s
   (29.6 eager), slower than the replicated FFT there, and 13.69 ms an
   8192-channel block of N = 2^26 against 18.92 on one card (PERF.md).
-- --profile writes a torch.profiler trace.
+- --profile writes a torch.profiler trace.  The bank's entry calls then
+  also carry the port's spans (``ka9q.put``, ``ka9q.stagein``,
+  ``ka9q.replay``, ``ka9q.clone``, ``ka9q.capture``: ``utils.trace``) on
+  the trace's timeline with the device's operations.
 - KA9Q_BANKD_TIMING=1 prints the loop's split per block on every input path
   (read, poll, step, copy, wait, emit, status), every 250 blocks and at the
-  end of the run.
+  end of the run; step, the bank's entry call, is read from the port's
+  block recorder (``utils.trace``) with its two parts, put (the upload)
+  and launch (the graph's input copy, replay and output clones).
 """
 
 from __future__ import annotations
@@ -53,12 +58,12 @@ import torch
 
 from ..io.iqfile import IQReader
 from ..io.pcm import PCMOutput, scaleclip_int16
-from ..models.bank import ChannelBank, MultiBank, _complex_block, \
-    make_bank_config
+from ..models.bank import ChannelBank, MultiBank, make_bank_config
 from ..net import status as st
 from ..net.multicast import _parse_target, setup_mcast
 from ..net.status import StatusCompactor, StatusType
 from ..parallel.mesh import make_channel_mesh, pad_channels
+from ..utils import trace
 from ..utils.misc import parse_frequency
 from ..utils.runtime import HostCopy, configure_torch
 
@@ -225,11 +230,15 @@ def poll_commands(sock, handler) -> None:
 class Timing:
     """Host seconds per phase of the serving loop, summed over `n` blocks:
     read (the next block from the file or the engine), poll (commands),
-    step (queuing the block on the device), copy (starting its host
-    copies), wait (for the copies of the block being emitted), emit
-    (packetising it and writing --pcm-raw), status."""
+    step (the bank's entry call queuing the block on the device, as the
+    block recorder stamped it) and its parts put (the upload) and launch
+    (the rest of the call), copy (starting its host copies), wait (for the
+    copies of the block being emitted), emit (packetising it and writing
+    --pcm-raw), status."""
 
-    KEYS = ("read", "poll", "step", "copy", "wait", "emit", "status")
+    KEYS = ("read", "poll", "step", "put", "launch", "copy", "wait", "emit",
+            "status")
+    PARTS = ("put", "launch")     # of step, not counted again in the total
 
     def __init__(self):
         self.t = dict.fromkeys(self.KEYS, 0.0)
@@ -241,9 +250,18 @@ class Timing:
         self.t[key] += now - t0
         return now
 
+    def entry(self) -> float:
+        """Charge the bank's entry call just made on this thread to step,
+        put and launch, from its row of the block recorder; returns now."""
+        put, launch = trace.last_split()
+        self.t["put"] += put
+        self.t["launch"] += launch
+        self.t["step"] += put + launch
+        return time.perf_counter()
+
     def line(self) -> str:
         n = max(self.n, 1)
-        total = sum(self.t.values())
+        total = sum(v for k, v in self.t.items() if k not in self.PARTS)
         return ("bankd timing: " + "  ".join(
             f"{k} {1e3 * v / n:.3f}" for k, v in self.t.items())
             + f"  total {1e3 * total / n:.3f} ms/blk ({self.n} blocks)")
@@ -395,15 +413,11 @@ class BankDaemon(_Daemon):
         Double-buffered: block n+1 is queued on the device and its host
         copies started BEFORE block n is emitted, so the host's PCM
         packetisation overlaps the device compute."""
-        t0 = time.perf_counter()
         if iq.ndim == 2 and iq.dtype == np.int16:
             audio, diag = self.bank.process_i16_pcm(iq)
-        elif iq.ndim == 2:
-            x = torch.as_tensor(iq, device=self.device)
-            audio, diag = self.bank.process(_complex_block(x))
         else:
             audio, diag = self.bank.process(iq)
-        t1 = self.timing.add("step", t0)
+        t1 = self.timing.entry()
         copy = HostCopy([audio, diag.get("snr"), diag.get("bb_power")])
         self.timing.add("copy", t1)
         pending, self._pending = self._pending, copy
@@ -912,9 +926,8 @@ class MultiBankDaemon(_Daemon):
         queued and its host copies started before block n is emitted, so
         host packetisation overlaps device compute.  One HostCopy holds
         every group's audio and status diag."""
-        t0 = time.perf_counter()
         outs = self.mb.process(block)
-        t1 = self.timing.add("step", t0)
+        t1 = self.timing.entry()
         copy = HostCopy([t for audio, diag in outs
                          for t in (audio, diag.get("snr"),
                                    diag.get("bb_power"))])
@@ -1216,9 +1229,8 @@ def _run_bank(d: BankDaemon, args) -> int:
                                                  n_valid=nv)
 
                 def step(block):
-                    t0 = time.perf_counter()
                     pcm, idx, diag = active(block)
-                    t0 = d.timing.add("step", t0)
+                    t0 = d.timing.entry()
                     # every leaf the emit path reads, status diag included
                     pending.append(HostCopy([pcm, idx, diag.get("snr"),
                                              diag.get("bb_power")]))

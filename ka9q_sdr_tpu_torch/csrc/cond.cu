@@ -17,6 +17,10 @@
 // graph, which torch's own cross-device copy is not (it queues on the
 // source device's stream).  ``graph_peer`` enables peer access first.
 //
+// ``graph_stamp`` queues a one-thread kernel that writes the device's
+// %globaltimer (ns) to `out`: captured, a kernel node that stamps where a
+// stage of the step starts on every replay (``utils/trace.py`` marks).
+//
 // Entries return a cudaError_t (0 = success); ``cond_error`` names one.
 
 #include <cuda_runtime.h>
@@ -45,6 +49,12 @@ __global__ void set_if(cudaGraphConditionalHandle handle, const bool* pred) {
   cudaGraphSetConditional(handle, *pred ? 1u : 0u);
 }
 
+__global__ void stamp(unsigned long long* out) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  *out = t;
+}
+
 cudaError_t capture_frontier(cudaStream_t stream, cudaGraph_t* graph,
                              const cudaGraphNode_t** deps, size_t* n) {
   cudaStreamCaptureStatus status;
@@ -63,13 +73,14 @@ cudaError_t capture_frontier(cudaStream_t stream, cudaGraph_t* graph,
 
 }  // namespace
 
-// Load the handle kernel on `device` before any capture (a module load
-// inside a capture is not allowed everywhere).
+// Load the handle and stamp kernels on `device` before any capture (a
+// module load inside a capture is not allowed everywhere).
 extern "C" int cond_init(int device) {
   OnDevice on(device);
   cudaError_t err = on.err();
   cudaFuncAttributes attr;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, set_if);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, stamp);
   return static_cast<int>(err);
 }
 
@@ -151,6 +162,17 @@ extern "C" int graph_copy(int device, void* dst, const void* src,
     err = cudaMemcpyAsync(dst, src, bytes, cudaMemcpyDefault,
                           static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
+}
+
+// The device's %globaltimer into the 8 bytes at `out` (device memory of
+// `device`), on `stream`.
+extern "C" int graph_stamp(int device, void* out, void* stream) {
+  OnDevice on(device);
+  cudaError_t err = on.err();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stamp<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* cond_error(int err) {

@@ -46,6 +46,7 @@ from ..ops.fftfilt import (
     slave_bin_indices,
 )
 from ..ops.nco import OscState, osc_block, osc_init, set_osc, split_double
+from ..utils import trace
 from ..utils.graphs import (StepGraphs, clone_tree, scan, static_copy,
                             write_state)
 from ..utils.modes import DEFAULT_MODES, ModeDef
@@ -396,26 +397,34 @@ def bank_step(
     """One wideband block through all channels.
 
     iq_block: (L,) complex64 at the wideband rate.  Returns
-    (state, audio, diag); audio is (B, L_dec) float32."""
+    (state, audio, diag); audio is (B, L_dec) float32.  Marks the stages
+    ``ingest``, ``fft``, then group 0's (``utils.trace``)."""
+    trace.mark("ingest", iq_block)
     samp = iq_block * state.gain_factor
-    overlap, fdomain = master_execute(cfg.master, state.overlap, samp)
-    return _bank_step_spectrum(cfg, state, overlap, fdomain)
+    overlap, fdomain = master_execute(cfg.master, state.overlap, samp,
+                                      stage="fft")
+    state, audio, diag = _bank_step_spectrum(cfg, state, overlap, fdomain)
+    trace.mark("pack", audio, group=0)
+    return state, audio, diag
 
 
 def _bank_step_spectrum(cfg: BankConfig, state: BankState,
-                        overlap: torch.Tensor, fdomain):
+                        overlap: torch.Tensor, fdomain, group: int = 0):
     """The bank step after the master FFT: recenter, channelize, demod, and
-    the new state holding `overlap`."""
+    the new state holding `overlap`; marks `group`'s stages."""
+    trace.mark("channelize", state.k, group=group)
     state = bank_recenter(cfg, state)   # k-hops for swept channels
     return _bank_step_bins(cfg, state._replace(overlap=overlap),
-                           _gather(cfg, state, fdomain))
+                           _gather(cfg, state, fdomain), group)
 
 
 def _bank_step_bins(cfg: BankConfig, state: BankState,
-                    gathered: torch.Tensor):
+                    gathered: torch.Tensor, group: int = 0):
     """The bank step from a recentered state and its channels' gathered
-    bins: channelize and demod.  Returns (new_state, audio, diag)."""
+    bins: channelize and demod (its stage marked for `group`).  Returns
+    (new_state, audio, diag)."""
     new_r, new_nco, baseband = _channelize_bins(cfg, state, gathered)
+    trace.mark("demod", baseband, group=group)
     dstate, audio, diag = bank_demod(cfg, state.demod, baseband)
     return state._replace(r=new_r, nco=new_nco, demod=dstate), audio, diag
 
@@ -438,7 +447,9 @@ def bank_step_i16(
     pcm_out: bool = False,
 ) -> tuple[BankState, torch.Tensor, dict]:
     """bank_step on raw (L, 2) int16 I/Q (radio.c:38 scaling on the
-    device).  pcm_out=True also quantises the audio to int16 PCM."""
+    device, in the ``ingest`` stage).  pcm_out=True also quantises the
+    audio to int16 PCM (in ``g0.pack``)."""
+    trace.mark("ingest", x_i16)
     state, audio, diag = bank_step(cfg, state, iq_from_i16(x_i16))
     return state, (_pcm(audio) if pcm_out else audio), diag
 
@@ -477,7 +488,8 @@ def bank_step_active(
     idx (max_active,) int32, diag): the top-max_active channels by audio
     peak as int16 PCM; idx[i] = -1 marks an unused slot (channel silent).
     n_valid: only the first n_valid channels compete for slots (mesh
-    padding rows are excluded, parallel.mesh.pad_channels)."""
+    padding rows are excluded, parallel.mesh.pad_channels).  The
+    compaction is part of the ``g0.pack`` stage."""
     state, audio, diag = bank_step_i16(cfg, state, x_i16)
     flat = audio.reshape(audio.shape[0], -1)
     idx = _top_active(torch.amax(torch.abs(flat), dim=-1), max_active,
@@ -679,6 +691,15 @@ def _edit_row(states, n_per_shard: int | None, channel: int, fn):
     return tuple(states)
 
 
+def _upload(x, dtype, device) -> torch.Tensor:
+    """A host wrapper's input on its device (the entry's ``put``: a
+    synchronous copy from host memory), stamped in the call's row."""
+    tok = trace.span("put", device, "upload")
+    x = torch.as_tensor(x, dtype=dtype, device=device)
+    trace.put_done(tok)
+    return x
+
+
 def _split(res):
     """(state, *outputs) -> (state, outputs), the StepGraphs step form."""
     return res[0], res[1:]
@@ -759,7 +780,7 @@ class ChannelBank:
         self._snap = None
 
     def _put(self, x, dtype) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=dtype, device=self.device)
+        return _upload(x, dtype, self.device)
 
     def _run(self, key, fn, x, warmup=None):
         """One call of the step variant `key` over the static state."""
@@ -777,18 +798,27 @@ class ChannelBank:
         return self._run(("f32",), lambda s, x: _split(bank_step(cfg, s, x)),
                          x)
 
+    @trace.entry("ChannelBank.process")
     def process(self, iq_block):
-        """iq_block: (L,) complex (numpy or tensor).  Returns (audio, diag)."""
-        return self._block(self._put(iq_block, torch.complex64), "f32", False)
+        """iq_block: (L,) complex or (L, 2) float packed I/Q (numpy or
+        tensor).  Returns (audio, diag)."""
+        if iq_block.ndim == 2:
+            x = _complex_block(self._put(iq_block, torch.float32))
+        else:
+            x = self._put(iq_block, torch.complex64)
+        return self._block(x, "f32", False)
 
+    @trace.entry("ChannelBank.process_i16")
     def process_i16(self, x_i16):
         """Raw (L, 2) int16 ingest.  Returns (audio, diag)."""
         return self._block(self._put(x_i16, torch.int16), "i16", False)
 
+    @trace.entry("ChannelBank.process_i16_pcm")
     def process_i16_pcm(self, x_i16):
         """int16 in, int16 PCM (B, L_dec) out.  Returns (pcm, diag)."""
         return self._block(self._put(x_i16, torch.int16), "i16", True)
 
+    @trace.entry("ChannelBank.process_scan_i16")
     def process_scan_i16(self, x_i16_blocks, pcm_out: bool = False):
         """Demodulate (k, L, 2) int16 blocks in order, as one step of k
         blocks (the JAX ``bank_scan_packed_i16``; on a card one graph
@@ -808,6 +838,7 @@ class ChannelBank:
                          lambda s, xs: scan(step, s, xs), blocks,
                          warmup=lambda s, xs: step(s, xs[0]))
 
+    @trace.entry("ChannelBank.process_active")
     def process_active(self, x_i16, max_active: int = 64,
                        n_valid: int | None = None):
         """int16 in; int16 PCM of the top-max_active non-silent channels
@@ -892,12 +923,15 @@ def multibank_step(cfgs: Sequence[BankConfig], states: Sequence[BankState],
     master FFT, then each group's recenter, channelize and demod.
 
     iq_block: (L,) complex64.  Returns (states, [(audio, diag), ...]); every
-    new state holds the same new overlap tensor."""
+    new state holds the same new overlap tensor.  Marks the stages
+    ``ingest``, ``fft`` and each group's channelize and demod
+    (``utils.trace``; the caller marks where each group's pack starts)."""
+    trace.mark("ingest", iq_block)
     overlap, fdomain = master_execute(cfgs[0].master, states[0].overlap,
-                                      iq_block)
+                                      iq_block, stage="fft")
     new_states, outs = [], []
-    for cfg, s in zip(cfgs, states):
-        ns, audio, diag = _bank_step_spectrum(cfg, s, overlap, fdomain)
+    for g, (cfg, s) in enumerate(zip(cfgs, states)):
+        ns, audio, diag = _bank_step_spectrum(cfg, s, overlap, fdomain, g)
         new_states.append(ns)
         outs.append((audio, diag))
     return new_states, outs
@@ -1001,7 +1035,7 @@ class MultiBank:
         self._shard_cfgs = [shard_configs(c, self.mesh) for c in self.cfgs]
 
     def _put(self, x, dtype) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=dtype, device=self.device)
+        return _upload(x, dtype, self.device)
 
     def _step(self, x: torch.Tensor, ingest: str, pcm_out: bool) -> list:
         """One block of every group: the raw input `x` (ingest "f32": (L,)
@@ -1012,11 +1046,14 @@ class MultiBank:
 
         def step(cfgs):
             def fn(states, x):
+                trace.mark("ingest", x)
                 blk = iq_from_i16(x) if ingest == "i16" else _complex_block(x)
                 new, outs = multibank_step(cfgs, states, blk)
-                if pcm_out:
-                    outs = [(_pcm(a), d) for a, d in outs]
-                return new, outs
+                packed = []
+                for g, (a, d) in enumerate(outs):
+                    trace.mark("pack", a, group=g)
+                    packed.append((_pcm(a) if pcm_out else a, d))
+                return new, packed
             return fn
 
         key = (ingest, pcm_out)
@@ -1040,17 +1077,19 @@ class MultiBank:
                  for k in shards[0][1]}))
         return outs
 
+    @trace.entry("MultiBank.process")
     def process(self, iq_block) -> list:
         """iq_block: (L,) complex or (L, 2) float packed I/Q (numpy or
         tensor).  Returns [(audio, diag), ...] per group."""
-        return self._step(torch.as_tensor(iq_block, device=self.device),
-                          "f32", False)
+        return self._step(self._put(iq_block, None), "f32", False)
 
+    @trace.entry("MultiBank.process_i16")
     def process_i16(self, x_i16) -> list:
         """Raw (L, 2) int16 ingest, scaled on the device (radio.c:38).
         Returns [(audio, diag), ...] per group."""
         return self._step(self._put(x_i16, torch.int16), "i16", False)
 
+    @trace.entry("MultiBank.process_i16_pcm")
     def process_i16_pcm(self, x_i16) -> list:
         """int16 in, int16 PCM out.  Returns [(pcm, diag), ...] per group."""
         return self._step(self._put(x_i16, torch.int16), "i16", True)

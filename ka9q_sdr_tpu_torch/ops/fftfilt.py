@@ -23,6 +23,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import trace
+
 __all__ = [
     "FilterType",
     "MasterSpec",
@@ -133,16 +135,20 @@ def fft_fourstep(z: torch.Tensor) -> torch.Tensor:
 
 
 def master_execute(
-    spec: MasterSpec, overlap: torch.Tensor, block: torch.Tensor
+    spec: MasterSpec, overlap: torch.Tensor, block: torch.Tensor,
+    stage: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One overlap-save step (execute_filter_input, filter.c:146-172).
 
     Concatenates the carried M-1 overlap with the new L-sample block,
     forward-FFTs the N samples, and returns (new_overlap, fdomain).  The FFT
-    is unnormalised-forward, matching FFTW_FORWARD."""
+    is unnormalised-forward, matching FFTW_FORWARD.  `stage`, where given,
+    is the ``utils.trace`` stage that starts at the FFT."""
     if block.shape[-1] != spec.L:
         raise ValueError(f"block length {block.shape[-1]} != L = {spec.L}")
     buf = torch.cat([overlap, block], dim=-1)
+    if stage is not None:
+        trace.mark(stage, buf)
     if spec.in_type is FilterType.REAL:
         fdomain = torch.fft.rfft(buf, dim=-1)
     else:

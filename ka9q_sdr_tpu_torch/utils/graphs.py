@@ -43,6 +43,13 @@ link is one device's graph, the next link reads its outputs in place
 and events queued on the devices order the links; the host waits on
 none.
 
+The port's tracer (``utils.trace``) reads a run here: each call stamps
+the end of the static-input copy and the replay's launch in the calling
+entry's row, a capture records its seconds (``trace.captured``), a
+captured step's stage marks become kernel nodes of its graph that stamp
+the device's clock (``_Graph.marks``), closed after the state
+write-back, and a scan's steps carry none.
+
 Kernel launch counts: a kernel wrapper counts its launches as it queues
 them, which a replay does not do.  The launches a capture queued are
 recorded and added to the counters on every replay, while the warm-up's
@@ -59,6 +66,8 @@ import time
 from typing import Callable, NamedTuple
 
 import torch
+
+from . import trace
 
 __all__ = ["StepGraphs", "MeshGraphs", "write_state", "clone_tree",
            "static_copy", "scan", "cond", "fetch", "tree_leaves"]
@@ -153,11 +162,12 @@ def scan(step: Callable, state, xs: torch.Tensor):
     if xs.shape[0] == 0:
         raise ValueError("a scan needs at least one block")
     out = None
-    for i in range(xs.shape[0]):
-        state, y = step(state, xs[i])
-        if out is None:
-            out = y.new_empty((xs.shape[0],) + tuple(y.shape))
-        out[i] = y
+    with trace.unmarked():                  # a block's stages, not k's
+        for i in range(xs.shape[0]):
+            state, y = step(state, xs[i])
+            if out is None:
+                out = y.new_empty((xs.shape[0],) + tuple(y.shape))
+            out[i] = y
     return state, out
 
 
@@ -236,6 +246,8 @@ def _cond_lib(device: int):
         lib.graph_copy.argtypes = [ctypes.c_int, ctypes.c_void_p,
                                    ctypes.c_void_p, ctypes.c_size_t,
                                    ctypes.c_void_p]
+        lib.graph_stamp.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                    ctypes.c_void_p]
         lib.cond_error.restype = ctypes.c_char_p
     if device not in _COND_READY:
         _cond_check(lib, lib.cond_init(device), "loading the IF-node kernel")
@@ -350,6 +362,7 @@ class _Graph(NamedTuple):
     outputs: object         # the graph's output tree
     state_ptrs: tuple       # the state it was captured against
     launches: tuple         # kernel launches per replay, per counter
+    marks: object           # its stage marks (trace.Stamps), or None
 
 
 class StepGraphs:
@@ -392,32 +405,49 @@ class StepGraphs:
         instead of clones."""
         extra = () if fixed is None else (fixed,)
         if not self.capture:
+            tok = trace.span("replay")
             new, out = fn(state, *inputs, *extra)
             write_state(state, new)
+            trace.close_marks(self.device)
+            trace.replayed(tok, None)
             if own:
                 return out
+            tok = trace.span("clone", self.device, "clone")
             static = {_storage(t) for t in tree_leaves(state)}
             # an output that is a state tensor changes with the next block
-            return _map(lambda t: t.clone() if _storage(t) in static else t,
-                        out)
+            out = _map(lambda t: t.clone() if _storage(t) in static else t,
+                       out)
+            trace.close(tok)
+            return out
         key = (key,) + tuple((tuple(x.shape), x.dtype) for x in inputs)
         if fixed is not None:
             key += (_ptrs(fixed),)
         with torch.cuda.device(self.device):
             g = self.graphs.get(key)
             if g is None:
+                tok = trace.span("capture")
                 g = self._capture(key, fn, state, inputs, warmup, extra)
+                trace.close(tok)
             elif g.state_ptrs != _ptrs(state):
                 raise RuntimeError(
                     "the static state was replaced since its graph was "
                     "captured; write edits into it (write_state) or clear()")
+            tok = trace.span("stagein", self.device, "stagein")
             for s, x in zip(g.inputs, inputs):
                 s.copy_(x)
+            trace.close(tok, trace.STAGEIN)
+            tok = trace.span("replay")
             g.graph.replay()
+            trace.replayed(tok, g.marks)
             self.replays += 1
             for m, n in zip(_counters(), g.launches):
                 m.launches += n
-            return g.outputs if own else clone_tree(g.outputs)
+            if own:
+                return g.outputs
+            tok = trace.span("clone", self.device, "clone")
+            out = clone_tree(g.outputs)
+            trace.close(tok)
+            return out
 
     def _capture(self, key, fn, state, inputs, warmup, extra) -> _Graph:
         with _CAPTURE_LOCK:
@@ -438,6 +468,7 @@ class StepGraphs:
                 self._body = torch.cuda.Stream(self.device)
             _CAPTURE.ctx = _Capture(torch.cuda.current_device(), self._pool,
                                     self._body)
+            trace.capture_marks(_indexed(self.device))
             try:
                 with torch.cuda.stream(self._stream):
                     (warmup or fn)(state, *static_in, *extra)  # dropped
@@ -455,16 +486,21 @@ class StepGraphs:
                                           capture_error_mode="thread_local"):
                         new, out = fn(state, *static_in, *extra)
                         write_state(state, new)
+                        trace.close_marks(self.device)
                 finally:
                     if collecting:
                         gc.enable()
             finally:
                 _CAPTURE.ctx = None
+                marks = trace.capture_end()
             launches = tuple(a - b for a, b in zip(_counts(), warm))
             _set_counts(before)
-            g = _Graph(graph, fn, static_in, out, _ptrs(state), launches)
+            g = _Graph(graph, fn, static_in, out, _ptrs(state), launches,
+                       marks)
             self.graphs[key] = g
-            self.capture_s += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.capture_s += dt
+            trace.captured(repr(key[0]), dt)
             return g
 
 

@@ -21,7 +21,12 @@ carrier search.  The ``shard_fft`` cases run the distributed-master-FFT
 bank and ``make_dfft`` as chains of per-device graphs
 (``graphs.MeshGraphs``) on 4 shards: the machine's first 4 cards where it
 has them (the peer copies are then memcpy nodes), else 4 shards of the
-card.
+card.  The stage marks of a captured FM+PL step (``utils.trace``) are
+held to one stamp kernel node a mark and nothing else, by libcuda's
+node types of the graph captured with and without them, and their
+intervals to CUDA events around the replay, within 10%; a MultiBank of
+25 groups keeps all of its 78 marks, and a capture that marks more
+stages than its warm-up keeps none and replays whole.
 """
 
 import gc
@@ -478,4 +483,137 @@ def test_copy_node_is_captured(card):
     for v in (1.0, 3.0):
         (out,) = g.run("k", step, (), (torch.full((64,), v, device=card),))
         assert torch.equal(out, torch.full((64,), 2 * v, device=card))
+    assert g.replays == 2
+
+
+#: CUgraphNodeType (cuda.h)
+KERNEL = 0
+
+
+def _node_types(graph) -> dict:
+    """{CUgraphNodeType: count} of a kept graph's top-level nodes, read
+    with libcuda's cuGraphGetNodes."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    h = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(h, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(h, nodes, ctypes.byref(n)) == 0
+    out: dict = {}
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(t)) == 0
+        out[t.value] = out.get(t.value, 0) + 1
+    return out
+
+
+@pytest.mark.cuda
+def test_stage_marks_time_the_replay(card, monkeypatch):
+    """The stage marks of a captured FM+PL step are one stamp kernel node
+    a mark and nothing else: the same capture with the marks off has
+    every other node (kernels, copies, the PL gate's IF node) and as many
+    of each; and the marks' intervals add up to within 10% of CUDA events
+    around the replay."""
+    from ka9q_sdr_tpu_torch.utils import trace
+
+    trace.reset()
+    kept = []
+    real = torch.cuda.CUDAGraph
+
+    def keep():
+        kept.append(real(keep_graph=True))
+        return kept[-1]
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", keep)
+    cfg = TB.make_bank_config(B, "FM", samprate=FS, L=LW, M=M,
+                              enable_pl=True)
+    x = _blocks(1)[0]
+    bank = TB.ChannelBank(cfg, FREQS, device=card)
+    bank.process_i16_pcm(x)
+    marked = kept[-1]
+    with monkeypatch.context() as m:
+        m.setattr(trace, "mark", lambda *a, **k: None)
+        m.setattr(trace, "close_marks", lambda *a, **k: None)
+        plain = TB.ChannelBank(cfg, FREQS, device=card)
+        plain.process_i16_pcm(x)
+    g, = bank.graphs[0].graphs.values()
+    assert g.marks.names == ["ingest", "fft", "g0.channelize", "g0.demod",
+                             "g0.pack", "end"]
+    assert next(iter(plain.graphs[0].graphs.values())).marks is None
+    a, b = _node_types(marked), _node_types(kept[-1])
+    assert a.pop(KERNEL) - b.pop(KERNEL) == len(g.marks.names)
+    assert a == b
+    # the tracer's capture records and each wrapper's capture_s agree
+    assert sum(s for _, s in trace.captures()) == pytest.approx(
+        bank.graphs[0].capture_s + plain.graphs[0].capture_s)
+    inside, outside = [], []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)     # the card waits while we queue
+        e0.record()
+        g.graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        outside.append(e0.elapsed_time(e1))
+        stages = g.marks.read()
+        assert [n for n, _ in stages] == g.marks.names[:-1]
+        assert all(v >= 0 for _, v in stages)
+        inside.append(sum(v for _, v in stages))
+    assert abs(np.median(inside) - np.median(outside)) \
+        <= 0.1 * np.median(outside)
+
+
+@pytest.mark.cuda
+def test_many_groups_capture_every_mark(card):
+    """A MultiBank of 25 single-channel groups (bankd's channel file makes
+    one group per mode and passband) captures, replays bit-equal to its
+    eager twin, and keeps a mark for each of its 3 x 25 + 3 stages."""
+    modes = ("FM", "USB", "CAM", "LSB", "AM")
+    groups = [(modes[i % 5], [float(FREQS[i % B]) + 100.0 * i])
+              for i in range(25)]
+    cap = TB.MultiBank(groups, samprate=FS, L=LW, M=M, device=card)
+    eager = TB.MultiBank(groups, samprate=FS, L=LW, M=M, device=card,
+                         capture=False)
+    for x in _blocks(3):
+        assert_bit_equal(cap.process_i16_pcm(x), eager.process_i16_pcm(x))
+    g, = cap.graphs[0].graphs.values()
+    assert len(g.marks.names) == 3 * 25 + 3
+    assert g.marks.names[:3] == ["ingest", "fft", "g0.channelize"]
+    assert g.marks.names[-2:] == ["g24.pack", "end"]
+    stages = g.marks.read()
+    assert [n for n, _ in stages] == g.marks.names[:-1]
+    assert all(v >= 0 for _, v in stages)
+
+
+@pytest.mark.cuda
+def test_marks_past_the_warmups_leave_the_graph_whole(card):
+    """A capture that marks more stages than its warm-up passed keeps no
+    marks, and its graph replays as it would without them."""
+    from ka9q_sdr_tpu_torch.utils import trace
+
+    def fn(s, x):
+        trace.mark("a", x)
+        y = x * 2
+        trace.mark("b", y)
+        z = y + 1
+        trace.mark("c", z)
+        return s, (z,)
+
+    def warm(s, x):
+        trace.mark("a", x)
+        return s, (x,)
+
+    g = graphs.StepGraphs(card)
+    state = (torch.zeros(4, device=card),)
+    for v in (1.0, 5.0):
+        (out,) = g.run("k", fn, state, (torch.full((64,), v, device=card),),
+                       warmup=warm)
+        assert torch.equal(out, torch.full((64,), 2 * v + 1, device=card))
+    (kept,) = g.graphs.values()
+    assert kept.marks is None
     assert g.replays == 2

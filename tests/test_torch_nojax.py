@@ -44,7 +44,7 @@ from ka9q_sdr_tpu_torch.io import (BlockAssembler, IQReader, IQRecorder,
                                    PCMOutput, write_metadata)
 from ka9q_sdr_tpu_torch.models.doppler import DopplerSteerer
 from ka9q_sdr_tpu_torch.net import multicast, rtcp, rtp, status
-from ka9q_sdr_tpu_torch.utils import graphs, misc, modes, runtime, state
+from ka9q_sdr_tpu_torch.utils import graphs, misc, modes, runtime, state, trace
 from ka9q_sdr_tpu_torch import __main__ as listing, decode
 from ka9q_sdr_tpu_torch.apps import (aprs, aprsfeed, frontend, iqplay,
                                      iqrecord, modulate, packetd, pcmsend)

@@ -387,7 +387,7 @@ def test_cw_hang_tie_is_the_inputs():
                               M=row.M)
 
     def run(fft):
-        def master(spec, overlap, block):
+        def master(spec, overlap, block, stage=None):
             buf = torch.cat([overlap, block], dim=-1)
             return buf[..., spec.L:], fft(buf)
 
