@@ -16,6 +16,8 @@
 // ``graph_copy`` queues a copy on `stream`: captured, a memcpy node of the
 // graph, which torch's own cross-device copy is not (it queues on the
 // source device's stream).  ``graph_peer`` enables peer access first.
+// Outside a capture it is also the upload of a page-locked host block on
+// a wrapper's copy stream (``utils/graphs.py`` ``StepGraphs.upload``).
 //
 // ``graph_stamp`` queues a one-thread kernel that writes the device's
 // %globaltimer (ns) to `out`: captured, a kernel node that stamps where a

@@ -691,9 +691,19 @@ def _edit_row(states, n_per_shard: int | None, channel: int, fn):
     return tuple(states)
 
 
-def _upload(x, dtype, device) -> torch.Tensor:
-    """A host wrapper's input on its device (the entry's ``put``: a
-    synchronous copy from host memory), stamped in the call's row."""
+def _upload(x, dtype, device, graphs: StepGraphs | None = None
+            ) -> torch.Tensor:
+    """A host wrapper's input on its device (the entry's ``put``), stamped
+    in the call's row and counted by path (``trace.uploaded``).  With
+    `graphs` (a single-device wrapper's per-block entry), a host block in
+    page-locked memory is copied on their copy stream while the card still
+    runs the block before (``StepGraphs.upload``), and the card may read
+    it after the entry has returned; any other input is a synchronous
+    copy."""
+    staged = None if graphs is None else graphs.upload(x, dtype)
+    trace.uploaded(staged is not None)
+    if staged is not None:
+        return staged
     tok = trace.span("put", device, "upload")
     x = torch.as_tensor(x, dtype=dtype, device=device)
     trace.put_done(tok)
@@ -728,7 +738,17 @@ class ChannelBank:
     runs the same steps eagerly (the twin the graphs are held against).
     What a call returns belongs to the caller.  The live state is static:
     live edits write into it, ``state`` reads a copy of it (the same copy
-    until the next block or edit) and assigning ``state`` writes into it."""
+    until the next block or edit) and assigning ``state`` writes into it.
+
+    A per-block entry (every one but ``process_scan_i16``) of a bank on
+    one device that captures takes a host block in page-locked memory
+    without waiting for its copy, which runs on a copy stream while the
+    card still runs the block before: the card may still be reading the
+    block when the call returns.  The caller may rewrite that memory once
+    an event recorded on the current stream after the call has completed
+    (the outputs' copy to the host, say).  Any other input (pageable
+    memory, a tensor on the card, a mesh, ``capture=False``, the CPU) is
+    copied before the call returns."""
 
     def __init__(self, cfg: BankConfig, freqs_hz: Sequence[float], *,
                  device=None, mesh=None, shard_fft: bool = False,
@@ -780,7 +800,10 @@ class ChannelBank:
         self._snap = None
 
     def _put(self, x, dtype) -> torch.Tensor:
-        return _upload(x, dtype, self.device)
+        """A block on the device, from page-locked host memory without the
+        host waiting (``_upload``)."""
+        return _upload(x, dtype, self.device,
+                       self._graphs if self.mesh is None else None)
 
     def _run(self, key, fn, x, warmup=None):
         """One call of the step variant `key` over the static state."""
@@ -801,7 +824,8 @@ class ChannelBank:
     @trace.entry("ChannelBank.process")
     def process(self, iq_block):
         """iq_block: (L,) complex or (L, 2) float packed I/Q (numpy or
-        tensor).  Returns (audio, diag)."""
+        tensor).  Returns (audio, diag).  A page-locked host block may
+        be read after the return (the class docstring)."""
         if iq_block.ndim == 2:
             x = _complex_block(self._put(iq_block, torch.float32))
         else:
@@ -810,12 +834,15 @@ class ChannelBank:
 
     @trace.entry("ChannelBank.process_i16")
     def process_i16(self, x_i16):
-        """Raw (L, 2) int16 ingest.  Returns (audio, diag)."""
+        """Raw (L, 2) int16 ingest.  Returns (audio, diag).  A page-locked
+        host block may be read after the return (the class docstring)."""
         return self._block(self._put(x_i16, torch.int16), "i16", False)
 
     @trace.entry("ChannelBank.process_i16_pcm")
     def process_i16_pcm(self, x_i16):
-        """int16 in, int16 PCM (B, L_dec) out.  Returns (pcm, diag)."""
+        """int16 in, int16 PCM (B, L_dec) out.  Returns (pcm, diag).
+        A page-locked host block may be read after the return (the class
+        docstring)."""
         return self._block(self._put(x_i16, torch.int16), "i16", True)
 
     @trace.entry("ChannelBank.process_scan_i16")
@@ -824,7 +851,8 @@ class ChannelBank:
         blocks (the JAX ``bank_scan_packed_i16``; on a card one graph
         replay per call).  Returns audio (k, B, L_dec), int16 when
         pcm_out."""
-        blocks = self._put(x_i16_blocks, torch.int16)
+        # k blocks: a synchronous copy, so no staging buffer k blocks wide
+        blocks = _upload(x_i16_blocks, torch.int16, self.device)
         if self.mesh is not None:
             self._snap = None
             return self._sharded.scan(self._state, blocks, pcm_out)
@@ -843,7 +871,8 @@ class ChannelBank:
                        n_valid: int | None = None):
         """int16 in; int16 PCM of the top-max_active non-silent channels
         out, plus their channel indices (-1 = unused slot).  n_valid keeps
-        mesh-padding rows out of the compaction."""
+        mesh-padding rows out of the compaction.  A page-locked host block
+        may be read after the return (the class docstring)."""
         x = self._put(x_i16, torch.int16)
         if self.mesh is not None:
             self._snap = None
@@ -951,7 +980,11 @@ class MultiBank:
     Each block is one step of every group (``multibank_step``): on a card
     one captured CUDA graph per variant (on a mesh one per device), as
     ``ChannelBank``; `capture=False` runs it eagerly.  ``states`` reads a
-    copy of the static state and assigning it writes into it."""
+    copy of the static state and assigning it writes into it.  On one
+    device that captures, a host block in page-locked memory may still be
+    read by the card after an entry returns, as ``ChannelBank``'s
+    per-block entries: the caller may rewrite it once an event recorded on
+    the current stream after the call has completed."""
 
     def __init__(self, groups: Sequence[tuple[str, Sequence[float]]],
                  samprate: float = 24.576e6, L: int = 491520,
@@ -1035,7 +1068,10 @@ class MultiBank:
         self._shard_cfgs = [shard_configs(c, self.mesh) for c in self.cfgs]
 
     def _put(self, x, dtype) -> torch.Tensor:
-        return _upload(x, dtype, self.device)
+        """The block on the device, from page-locked host memory without
+        the host waiting (``_upload``)."""
+        return _upload(x, dtype, self.device,
+                       self._graphs[0] if self.mesh is None else None)
 
     def _step(self, x: torch.Tensor, ingest: str, pcm_out: bool) -> list:
         """One block of every group: the raw input `x` (ingest "f32": (L,)
@@ -1080,18 +1116,22 @@ class MultiBank:
     @trace.entry("MultiBank.process")
     def process(self, iq_block) -> list:
         """iq_block: (L,) complex or (L, 2) float packed I/Q (numpy or
-        tensor).  Returns [(audio, diag), ...] per group."""
+        tensor).  Returns [(audio, diag), ...] per group.  A page-locked
+        host block may be read after the return (the class docstring)."""
         return self._step(self._put(iq_block, None), "f32", False)
 
     @trace.entry("MultiBank.process_i16")
     def process_i16(self, x_i16) -> list:
         """Raw (L, 2) int16 ingest, scaled on the device (radio.c:38).
-        Returns [(audio, diag), ...] per group."""
+        Returns [(audio, diag), ...] per group.  A page-locked host block
+        may be read after the return (the class docstring)."""
         return self._step(self._put(x_i16, torch.int16), "i16", False)
 
     @trace.entry("MultiBank.process_i16_pcm")
     def process_i16_pcm(self, x_i16) -> list:
-        """int16 in, int16 PCM out.  Returns [(pcm, diag), ...] per group."""
+        """int16 in, int16 PCM out.  Returns [(pcm, diag), ...] per group.
+        A page-locked host block may be read after the return (the class
+        docstring)."""
         return self._step(self._put(x_i16, torch.int16), "i16", True)
 
     def _edit(self, group: int, idx: int, fn) -> None:

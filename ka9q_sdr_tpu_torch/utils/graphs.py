@@ -15,6 +15,13 @@ one wrapper's static buffers:
   overwrites, so each call returns clones: a caller may hold what a call
   returned across any number of later blocks.
 
+A wrapper that captures uploads a host block in page-locked memory on a
+copy stream of its own, into one staging buffer per input shape and dtype
+(``upload``), while the card still runs the block before: two events
+order it, ``free`` (the stagein copy of the block before has read the
+buffer) before the copy and ``ready`` after it, which the compute stream
+waits on.  The host waits on neither.
+
 On a CUDA device each variant key is captured as a ``torch.cuda.CUDAGraph``
 at its first call, as the JAX wrappers jit lazily, and replayed once per
 call after that (the first call replays too).  Before the capture the step
@@ -65,6 +72,7 @@ import threading
 import time
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from . import trace
@@ -365,6 +373,12 @@ class _Graph(NamedTuple):
     marks: object           # its stage marks (trace.Stamps), or None
 
 
+class _Staging(NamedTuple):
+    buf: torch.Tensor       # the device copy of the last block uploaded
+    ready: object           # torch.cuda.Event: on the copy stream, after it
+    free: object            # on the compute stream, after its stagein
+
+
 class StepGraphs:
     """The compiled steps of one host wrapper on one device.
 
@@ -383,10 +397,62 @@ class StepGraphs:
         self._pool = None
         self._stream = None
         self._body = None           # the stream cond's IF bodies capture on
+        self._copy = None           # the stream uploads copy on
+        self._copy_lib = None       # csrc/cond.cu, whose graph_copy they use
+        self._staging: dict = {}    # (shape, dtype) -> _Staging
+        self._unread: dict = {}     # those staged since the last stagein
 
     def clear(self) -> None:
         self.graphs.clear()
         self._pool = None           # a new pool: the old one goes with them
+
+    def upload(self, x, dtype=None) -> torch.Tensor | None:
+        """`x` (a host tensor or array) on this device without the host
+        waiting: copied on the copy stream into the staging buffer of its
+        shape and dtype once the stagein of the block before has read it,
+        and the current stream made to wait for the copy.  None, with
+        nothing queued, unless the wrapper captures and `x` is contiguous,
+        of `dtype` (where given) and in page-locked memory.
+
+        The card may still be reading `x` when this returns: the caller
+        may rewrite its memory once an event recorded on the current
+        stream after the entry call has completed."""
+        if not self.capture:
+            return None
+        if isinstance(x, torch.Tensor):
+            if x.device.type != "cpu":
+                return None
+            src = x
+        elif isinstance(x, np.ndarray):
+            src = torch.as_tensor(x)
+        else:
+            return None
+        if (dtype is not None and src.dtype != dtype) \
+                or not src.is_contiguous() or not src.is_pinned():
+            return None
+        key = (tuple(src.shape), src.dtype)
+        st = self._staging.get(key)
+        if st is None:
+            if self._copy is None:
+                self._copy = torch.cuda.Stream(self.device)
+                self._copy_lib = _cond_lib(self._copy.device_index)
+            buf = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+            buf.record_stream(self._copy)
+            st = self._staging[key] = _Staging(buf, torch.cuda.Event(),
+                                               torch.cuda.Event())
+        copy, lib = self._copy, self._copy_lib
+        copy.wait_event(st.free)
+        tok = trace.span("put", self.device, "upload", stream=copy)
+        # one cudaMemcpyAsync on the copy stream, not torch's copy_ (which
+        # queues on the current stream) inside a switch of streams
+        _cond_check(lib, lib.graph_copy(copy.device_index, st.buf.data_ptr(),
+                                        src.data_ptr(), src.nbytes,
+                                        copy.cuda_stream), "an upload")
+        st.ready.record(copy)
+        torch.cuda.current_stream(self.device).wait_event(st.ready)
+        trace.put_done(tok)
+        self._unread[key] = st
+        return st.buf
 
     def run(self, key, fn: Callable, state, inputs: tuple,
             warmup: Callable | None = None, *, fixed=None,
@@ -435,6 +501,11 @@ class StepGraphs:
             tok = trace.span("stagein", self.device, "stagein")
             for s, x in zip(g.inputs, inputs):
                 s.copy_(x)
+            if self._unread:
+                cur = torch.cuda.current_stream(self.device)
+                for st in self._unread.values():
+                    st.free.record(cur)
+                self._unread.clear()
             trace.close(tok, trace.STAGEIN)
             tok = trace.span("replay")
             g.graph.replay()

@@ -39,17 +39,24 @@ read once a call).  The host phases then also enter
 "ka9q.clone" | "ka9q.capture")``, so they sit on the trace's timeline with
 the device's operations; events are recorded around the upload, the
 static-input copy and the clones (stages ``upload``, ``stagein``,
-``clone``); and the call's marks are kept (a captured step's stamps are
-copied to pinned memory behind an event).  They are harvested at the
-thread's next call, after its upload, or by ``stages()``: only where their
-last event has completed (``query()``), never by waiting.  A call whose
-events have not completed is dropped and counted in ``stage_missed``
-(the stage metrics then read nothing).  On
+``clone``; an upload that overlaps the block before has its events on
+the copy stream, around the copy); and the call's marks are kept (a
+captured step's stamps are copied to pinned memory of the call's own
+behind an event).  They are harvested at the thread's next call, after
+its upload, or by ``stages()``: a call whose events have all completed
+(``query()``), never by waiting; one still running stays pending.  A
+call is counted in ``stage_missed`` (the stage metrics then read
+nothing) where it is still running when ``stages()`` reads, or where it
+is dropped because more than `PENDING` calls are pending.  On
 the CPU, or with the graphs off, the marks are recorded as the step runs
 (host stamps on the CPU).
 
 **Captures.**  Each ``StepGraphs`` capture records its variant and its
 seconds (``captured``, ``captures()``).
+
+**Uploads.**  ``upload_overlapped`` and ``upload_inline`` count the
+entries' uploads, process-wide, by path (``uploaded``): copied on a copy
+stream while the block before runs, or synchronously.
 
 ``sdrbench/lateblocks.py`` prints the recorder's split of each late block
 of a served window.
@@ -69,13 +76,18 @@ import numpy as np
 import torch
 from torch.autograd import profiler as _profiler
 
-__all__ = ["RING", "COLUMNS", "Stamps", "entry", "span", "close",
-           "put_done", "replayed", "mark", "close_marks", "capture_marks",
-           "capture_end", "unmarked", "captured", "rows", "variant_names",
-           "stages", "captures", "last_split", "stage_missed", "reset"]
+__all__ = ["RING", "PENDING", "COLUMNS", "Stamps", "entry", "span",
+           "close", "put_done", "replayed", "mark", "close_marks",
+           "capture_marks", "capture_end", "unmarked", "captured",
+           "uploaded", "rows", "variant_names", "stages", "captures",
+           "last_split", "stage_missed", "upload_overlapped",
+           "upload_inline", "reset"]
 
 #: rows of the block recorder's ring
 RING = 16384
+
+#: a thread's detailed calls the harvest keeps pending at most
+PENDING = 64
 
 #: a row of the ring: perf_counter_ns at the entry's start, its upload's
 #: end, the static-input copy's end, after the replay's launch and at its
@@ -90,10 +102,16 @@ _seq = itertools.count()
 _variants: list = []
 _stages: deque = deque(maxlen=RING)      # (seq, variant, {stage: ms})
 _captures: list = []                     # (variant, seconds)
-_missed_lock = threading.Lock()           # the harvest's count of misses
+_count_lock = threading.Lock()            # the counts below
 
-#: detailed calls whose events had not completed when harvested
+#: detailed calls still running when ``stages()`` read, or dropped past
+#: `PENDING`
 stage_missed = 0
+
+#: entry uploads copied on a copy stream while the block before ran, and
+#: those copied synchronously
+upload_overlapped = 0
+upload_inline = 0
 
 
 class _Thread(threading.local):
@@ -126,10 +144,12 @@ class _HostEvent:
         return (end.t - self.t) * 1e3
 
 
-def _event(device):
+def _event(device, stream=None):
+    """A timing event recorded now on `stream` (the current stream of
+    `device` where None)."""
     if device.type == "cuda":
         ev = torch.cuda.Event(enable_timing=True)
-        ev.record(torch.cuda.current_stream(device))
+        ev.record(stream or torch.cuda.current_stream(device))
         return ev
     ev = _HostEvent()
     ev.record()
@@ -196,15 +216,17 @@ def _stamp(col: int) -> None:
         _ring[base + col] = time.perf_counter_ns()
 
 
-def span(name: str, device=None, stage: str | None = None):
+def span(name: str, device=None, stage: str | None = None, stream=None):
     """Open the host phase ``ka9q.<name>`` of a detailed call, and where
-    `stage` is given an event on `device` where that stage starts.  None
-    (nothing opened) unless the call is detailed."""
+    `stage` is given an event on `device` where that stage starts (on
+    `stream`, where given, and its end too).  None (nothing opened)
+    unless the call is detailed."""
     if not _t.detail:
         return None
     rf = _profiler.record_function("ka9q." + name)
     rf.__enter__()
-    return (rf, stage, device, _event(device) if stage else None)
+    return (rf, stage, device, _event(device, stream) if stage else None,
+            stream)
 
 
 def close(tok, col: int = -1) -> None:
@@ -214,20 +236,31 @@ def close(tok, col: int = -1) -> None:
         _stamp(col)
     if tok is None:
         return
-    rf, stage, device, ev = tok
+    rf, stage, device, ev, stream = tok
     if ev is not None:
-        _t.items.append(_Events([(stage, ev), ("end", _event(device))]))
+        _t.items.append(_Events([(stage, ev),
+                                 ("end", _event(device, stream))]))
     rf.__exit__(None, None, None)
 
 
 def put_done(tok) -> None:
-    """The end of an entry's upload: stamp it, close its span, and harvest
-    the thread's earlier detailed calls (their blocks are done where the
-    upload drained the stream)."""
+    """The end of an entry's upload (of its enqueue, where it overlaps):
+    stamp it, close its span, and harvest the thread's earlier detailed
+    calls whose events have completed."""
     close(tok, PUT)
     t = _t
     if t.pending:
         _harvest(t)
+
+
+def uploaded(overlapped: bool) -> None:
+    """Count one entry upload by its path."""
+    global upload_overlapped, upload_inline
+    with _count_lock:
+        if overlapped:
+            upload_overlapped += 1
+        else:
+            upload_inline += 1
 
 
 def replayed(tok, marks) -> None:
@@ -270,8 +303,6 @@ class Stamps:
         self.names: list = []   # the capture's
         self.buf = None
         self.lost = False       # the capture made more marks than the plan
-        self.host = None
-        self.done = None
 
     def add(self, name: str) -> None:
         """A mark inside the capture: one stamp kernel.  Past the plan's
@@ -292,20 +323,34 @@ class Stamps:
         self.names.append(name)
 
     def finish(self) -> "Stamps | None":
-        """After the capture: itself with its host buffer, or None where no
-        mark was made or some were lost."""
+        """After the capture: itself, or None where no mark was made or
+        some were lost."""
         if not self.names or self.lost:
             return None
-        self.host = torch.empty(len(self.names), dtype=torch.int64,
-                                pin_memory=True)
-        self.done = torch.cuda.Event()
         return self
 
-    def queue(self) -> "Stamps":
-        """After a replay: copy the stamps to the host behind an event."""
-        self.host.copy_(self.buf[:len(self.names)], non_blocking=True)
-        self.done.record(torch.cuda.current_stream(self.device))
-        return self
+    def queue(self) -> "_Copied":
+        """After a replay: its stamps copied to pinned memory of their own
+        behind an event (calls still pending keep theirs)."""
+        host = torch.empty(len(self.names), dtype=torch.int64,
+                           pin_memory=True)
+        host.copy_(self.buf[:len(self.names)], non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return _Copied(self.names, host, done)
+
+    def read(self):
+        """The last replay's (stage, ms), waiting for it (tests)."""
+        c = self.queue()
+        c.done.synchronize()
+        return c.intervals()
+
+
+class _Copied:
+    """One replay's stamps on their way to the host."""
+
+    def __init__(self, names, host, done):
+        self.names, self.host, self.done = names, host, done
 
     def query(self) -> bool:
         return self.done.query()
@@ -314,11 +359,6 @@ class Stamps:
         t = self.host.tolist()
         return [(name, (b - a) * 1e-6) for name, a, b
                 in zip(self.names, t, t[1:])]
-
-    def read(self):
-        """The last replay's (stage, ms), waiting for it (tests)."""
-        self.queue().done.synchronize()
-        return self.intervals()
 
 
 def mark(stage: str, like: torch.Tensor, group: int | None = None) -> None:
@@ -389,19 +429,27 @@ def captured(variant: str, seconds: float) -> None:
     _captures.append((variant, float(seconds)))
 
 
-def _harvest(t) -> None:
+def _harvest(t, final: bool = False) -> None:
+    """Keep the stages of the thread's pending calls whose events have
+    all completed; keep the others pending, at most `PENDING` of them, or
+    (`final`) count them missed."""
     global stage_missed
-    pending, t.pending = t.pending, []
-    for seq, vid, items in pending:
+    running = []
+    for call in t.pending:
+        seq, vid, items = call
         if not all(it.query() for it in items):
-            with _missed_lock:
-                stage_missed += 1
+            running.append(call)
             continue
         ms: dict = {}
         for it in items:
             for name, v in it.intervals():
                 ms[name] = ms.get(name, 0.0) + v
         _stages.append((seq, _variants[vid], ms))
+    keep = [] if final else running[-PENDING:]
+    t.pending = keep
+    if len(running) > len(keep):
+        with _count_lock:
+            stage_missed += len(running) - len(keep)
 
 
 def rows() -> np.ndarray:
@@ -417,10 +465,11 @@ def variant_names() -> list:
 
 
 def stages() -> list:
-    """The detailed calls' stages, oldest first: (seq, variant, {stage:
-    ms}), this thread's completed calls harvested first."""
+    """The detailed calls' stages, in the order harvested: (seq, variant,
+    {stage: ms}), this thread's pending calls harvested first (those
+    still running counted missed)."""
     if _t.pending:
-        _harvest(_t)
+        _harvest(_t, final=True)
     return list(_stages)
 
 
@@ -441,13 +490,13 @@ def last_split() -> tuple:
 
 
 def reset() -> None:
-    """Forget every row, stage, capture and miss, and count calls from 0
-    again (tests)."""
-    global stage_missed, _seq
+    """Forget every row, stage, capture, miss and upload, and count calls
+    from 0 again (tests)."""
+    global stage_missed, upload_overlapped, upload_inline, _seq
     for i in range(len(_ring)):
         _ring[i] = 0
     _seq = itertools.count()
     _stages.clear()
     _captures.clear()
-    stage_missed = 0
+    stage_missed = upload_overlapped = upload_inline = 0
     _t.pending = []

@@ -617,3 +617,169 @@ def test_marks_past_the_warmups_leave_the_graph_whole(card):
     (kept,) = g.graphs.values()
     assert kept.marks is None
     assert g.replays == 2
+
+
+def _pinned(blocks):
+    """Each block in page-locked memory of its own, handed over as a numpy
+    view of it (as the benchmark's loop hands its blocks)."""
+    out = []
+    for x in blocks:
+        h = torch.empty(x.shape, dtype=torch.int16, pin_memory=True)
+        h.copy_(torch.as_tensor(x))
+        out.append(h.numpy())
+    return out
+
+
+def _in_flight(call, blocks, depth=3):
+    """call(x) for each block with `depth` calls in flight, as the served
+    loop keeps them: an event after each call, the host waiting for the
+    one `depth` calls back; a spin holds the card first, so the host
+    queues ahead of it.  Returns what the calls returned."""
+    from collections import deque
+
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    outs, evs = [], deque()
+    for x in blocks:
+        outs.append(call(x))
+        ev = torch.cuda.Event()
+        ev.record()
+        evs.append(ev)
+        if len(evs) >= depth:
+            evs.popleft().synchronize()
+    torch.cuda.synchronize()
+    return outs
+
+
+FREQS96 = list(np.linspace(-0.45 * FS, 0.45 * FS, 96, endpoint=False))
+
+#: (wrapper on a card, its per-block call, its state)
+OVERLAP = {
+    "bank.i16_pcm": (
+        lambda d: TB.ChannelBank(TB.make_bank_config(
+            B, "FM", samprate=FS, L=LW, M=M, enable_pl=True), FREQS,
+            device=d),
+        lambda w, x: w.process_i16_pcm(x), lambda w: w.state),
+    "bank.active": (
+        lambda d: TB.ChannelBank(TB.make_bank_config(
+            96, "FM", samprate=FS, L=LW, M=M, enable_pl=True), FREQS96,
+            device=d),
+        lambda w, x: w.process_active(x, 64), lambda w: w.state),
+    "multi.i16_pcm": (
+        lambda d: TB.MultiBank([("FM", FREQS[:3]), ("USB", FREQS[3:6]),
+                                ("CAM", FREQS[6:])], samprate=FS, L=LW, M=M,
+                               device=d),
+        lambda w, x: w.process_i16_pcm(x), lambda w: w.states),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(OVERLAP))
+def test_overlapped_upload_equals_inline(card, name):
+    """Pinned blocks, each its own, uploaded on the copy stream with three
+    calls in flight behind a busy card, against a twin fed pageable copies
+    of the same blocks (the synchronous upload): outputs and state bit for
+    bit over a capture and 12 blocks."""
+    from ka9q_sdr_tpu_torch.utils import trace
+
+    make, call, state = OVERLAP[name]
+    blocks = _blocks(13, seed=11)
+    pinned = _pinned(blocks)
+    ov, inl = make(card), make(card)
+    trace.reset()
+    got = [call(ov, pinned[0])] + _in_flight(lambda x: call(ov, x),
+                                             pinned[1:])
+    assert (trace.upload_overlapped, trace.upload_inline) == (13, 0)
+    assert len(ov.graphs[0]._staging) == 1
+    want = [call(inl, np.array(blocks[0]))] + _in_flight(
+        lambda x: call(inl, x), [np.array(x) for x in blocks[1:]])
+    assert (trace.upload_overlapped, trace.upload_inline) == (13, 13)
+    assert inl.graphs[0]._staging == {}
+    for a, b in zip(got, want):
+        assert_bit_equal(a, b)
+    assert_bit_equal(state(ov), state(inl))
+    trace.reset()
+
+
+@pytest.mark.cuda
+def test_overlapped_call_makes_no_host_sync(card):
+    """A warmed-up call fed a pinned block, with every host
+    synchronisation an error (the synchronous upload is one)."""
+    from ka9q_sdr_tpu_torch.utils import trace
+
+    make, call, _ = OVERLAP["bank.i16_pcm"]
+    bank = make(card)
+    xs = _pinned(_blocks(2))
+    for x in xs:                        # the capture, then a replay
+        call(bank, x)
+    torch.cuda.synchronize()
+    n = trace.upload_overlapped
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call(bank, xs[0])
+        call(bank, xs[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert trace.upload_overlapped == n + 2
+
+
+def _reserved(make, call, feeds):
+    """memory_reserved grown by a fresh wrapper after its first call and
+    after the last of `feeds`."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    w = make(torch.device("cuda"))
+    call(w, feeds[0])
+    torch.cuda.synchronize()
+    first = torch.cuda.memory_reserved() - before
+    for x in feeds[1:]:
+        call(w, x)
+    torch.cuda.synchronize()
+    last = torch.cuda.memory_reserved() - before
+    del w
+    gc.collect()
+    torch.cuda.empty_cache()
+    return first, last
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bank.i16_pcm", "multi.i16_pcm"])
+def test_overlapped_upload_reserves_no_more(card, name):
+    """One staging buffer in place of the synchronous upload's temporary:
+    reserved memory after 10 overlapped calls is what it was after the
+    first, and no more than the synchronous path's."""
+    make, call, _ = OVERLAP[name]
+    blocks = _blocks(10)
+    first, last = _reserved(make, call, _pinned(blocks))
+    _, inline = _reserved(make, call, [np.array(x) for x in blocks])
+    assert last == first
+    assert last <= inline
+
+
+@pytest.mark.cuda
+def test_overlapped_stages_are_harvested(card):
+    """Detailed calls under the profiler with the upload on the copy
+    stream: none missed, each with its upload (timed on the copy stream)
+    and the step's stages, harvested without waiting."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ka9q_sdr_tpu_torch.utils import trace
+
+    make, call, _ = OVERLAP["bank.i16_pcm"]
+    bank = make(card)
+    xs = _pinned(_blocks(8))
+    call(bank, xs[0])
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        _in_flight(lambda x: call(bank, x), xs)
+    got = trace.stages()
+    assert trace.stage_missed == 0
+    assert [seq for seq, _, _ in got] == list(range(8))
+    for _, variant, ms in got:
+        assert variant == "ChannelBank.process_i16_pcm"
+        assert list(ms) == ["upload", "stagein", "ingest", "fft",
+                            "g0.channelize", "g0.demod", "g0.pack", "clone"]
+        assert all(v >= 0 for v in ms.values())
+    trace.reset()

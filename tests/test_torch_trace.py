@@ -299,30 +299,72 @@ def test_compaction_is_pack_and_a_scan_has_no_stages():
 
 
 class _Running:
-    """An event of a replay still running: query() says not done, and
-    nothing may wait on it or read its time."""
+    """An event of a replay still running: query() says not done until
+    `done` is set, and nothing may wait on it or read its time before."""
+
+    def __init__(self):
+        self.done = False
 
     def query(self):
-        return False
+        return self.done
 
     def synchronize(self):
         raise AssertionError("the harvest waited")
 
     def elapsed_time(self, end):
-        raise AssertionError("the harvest read a running event")
+        if not self.done:
+            raise AssertionError("the harvest read a running event")
+        return 1.5
+
+
+def _running_call(seq=99):
+    """A pending detailed call whose two events are still running."""
+    evs = (_Running(), _Running())
+    trace._t.pending.append((seq, 0, [trace._Events(
+        [("ingest", evs[0]), ("end", evs[1])])]))
+    return evs
 
 
 def test_harvest_of_a_running_replay_counts_a_miss():
+    """A call still running when ``stages()`` reads is one miss (before,
+    when every upload drained the stream, a call found running at the
+    next call's harvest was one)."""
     bank, x = _channel_bank(), _block()
     with profile(activities=[ProfilerActivity.CPU]):
         bank.process_i16_pcm(x)
     # one completed call pending, then one whose replay is still running
-    trace._t.pending.append((99, 0, [trace._Events(
-        [("ingest", _Running()), ("end", _Running())])]))
+    _running_call()
     bank.process_i16_pcm(x)                # harvests after its upload
-    assert trace.stage_missed == 1
+    assert trace.stage_missed == 0         # still running: kept pending
     assert [s for s, _, _ in trace.stages()] == [0]   # the profiled call
+    assert trace.stage_missed == 1
     assert trace._t.pending == []
+
+
+def test_harvest_keeps_a_running_call_until_it_completes():
+    bank, x = _channel_bank(), _block()
+    evs = _running_call()
+    bank.process_i16_pcm(x)
+    bank.process_i16_pcm(x)
+    assert [seq for seq, _, _ in trace._t.pending] == [99]
+    assert trace.stage_missed == 0
+    for ev in evs:
+        ev.done = True
+    bank.process_i16_pcm(x)                # its events have completed now
+    assert trace._t.pending == []
+    (seq, _, ms), = trace.stages()
+    assert seq == 99 and ms == {"ingest": 1.5}
+    assert trace.stage_missed == 0
+
+
+def test_harvest_drops_the_oldest_past_its_cap():
+    bank, x = _channel_bank(), _block()
+    for seq in range(trace.PENDING + 3):
+        _running_call(seq)
+    bank.process_i16_pcm(x)
+    assert trace.stage_missed == 3
+    assert [seq for seq, _, _ in trace._t.pending] == list(
+        range(3, trace.PENDING + 3))
 
 
 def test_capture_records_sum_to_capture_s():
