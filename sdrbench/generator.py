@@ -7,11 +7,13 @@ The draw (which channels carry a signal, and each signal's offset, level,
 tones and phases) comes from ``numpy.random.default_rng(seed)`` on the
 host; the noise from a ``torch.Generator`` seeded alike on the device.
 
-Every frequency in the loop is a whole number of Hz and the loop is one
-second long, so the loop is built in the frequency domain: complex noise
-in every 1 Hz bin of a `fs`-point spectrum, plus each signal's spectral
-lines (an FM carrier's by the Jacobi-Anger expansion of its two tones),
-and one inverse FFT.  The result is periodic in `fs` samples by
+Every frequency in the loop is a whole number of Hz (a signal is drawn
+around the whole Hz nearest its channel's centre, which a grid such as
+bankd's 4094 channels over 90% of the band leaves between two) and the
+loop is one second long, so the loop is built in the frequency domain:
+complex noise in every 1 Hz bin of a `fs`-point spectrum, plus each
+signal's spectral lines (an FM carrier's by the Jacobi-Anger expansion of
+its two tones), and one inverse FFT.  The result is periodic in `fs` samples by
 construction: block 49 runs into block 0 with no jump in any phase.  It
 is quantised to int16 I/Q (times 32767, clipped, truncated toward zero,
 as the root ``bench.py`` quantises) and copied once to the host, into
@@ -82,12 +84,6 @@ class Plan:
                                  if c.group == group), np.int64)
 
 
-def _whole(f: float) -> int:
-    if abs(f - round(f)) > 1e-6:
-        raise ValueError(f"channel centre {f} Hz is not a whole number of Hz")
-    return int(round(f))
-
-
 def draw(groups, fs: float, signals, seed: int) -> Plan:
     """The seed's draw of every signal.  groups: [(mode, freqs)]."""
     if abs(fs - round(fs)) > 1e-6:
@@ -102,7 +98,7 @@ def draw(groups, fs: float, signals, seed: int) -> Plan:
         freqs = groups[g][1]
         chans = np.sort(rng.choice(len(freqs), sig["count"], replace=False))
         for ch in chans:
-            centre = _whole(freqs[ch])
+            centre = int(round(freqs[ch]))
             lo_db, hi_db = sig["level_dbfs"]
             amp = 10.0 ** (rng.uniform(lo_db, hi_db) / 20.0)
             phase = rng.uniform(0, 2 * np.pi)
@@ -124,7 +120,7 @@ def draw(groups, fs: float, signals, seed: int) -> Plan:
                     (int(b), 1.0, rng.uniform(0, 2 * np.pi))])
             elif kind == "am":
                 offs = np.arange(-sig["offset_hz"], sig["offset_hz"] + 1)
-                pos = offs / SEARCH_BIN_HZ
+                pos = (offs + (centre - freqs[ch])) / SEARCH_BIN_HZ
                 ok = offs[np.abs(pos - np.round(pos)) <= sig["bin_margin"]]
                 off = int(rng.choice(ok))
                 tone = int(rng.integers(t_lo, t_hi + 1))

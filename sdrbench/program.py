@@ -1,15 +1,21 @@
 """The system under test, built from a configuration file: the port's
-``ChannelBank`` or ``MultiBank`` on one card, and the entry a cell
-drives.  This is the only module of the benchmark that imports the
-program, and it calls only these public entries:
+``ChannelBank`` or ``MultiBank`` on one card, or with the configuration's
+``mesh`` > 1 on that many cards (``parallel.mesh``, as ``bankd --mesh``
+builds it), and the entry a cell drives.  It calls only these public
+entries of the program:
 
 - ``models.bank.make_bank_config``, ``ChannelBank``, ``MultiBank``;
+- ``parallel.mesh.make_channel_mesh`` and ``pad_channels`` (a mesh);
 - ``ChannelBank.process_i16_pcm``, ``ChannelBank.process_active``,
   ``MultiBank.process_i16_pcm`` (the timed path), and the banks'
   ``state`` / ``states`` (read once before the first block and written
   back after the warm-up, so the window starts from a fresh bank);
 - ``ops.ffill.forward_fill_multi`` and ``ops.agc.agc_block`` (the kernel
   metrics, outside the window).
+
+``recorder.py`` and ``uploads.py`` read the program's tracer
+(``utils.trace``) once a run has ended; no other module of the benchmark
+imports the program.
 """
 
 from __future__ import annotations
@@ -37,14 +43,43 @@ def channel_freqs(cfg: dict) -> list:
     return out
 
 
+def mesh_size(cfg: dict) -> int:
+    """The cards (or CPU shards) the configuration's bank spans."""
+    return int(cfg.get("mesh", 1))
+
+
+def make_mesh(cfg: dict, device):
+    """The channel mesh of a configuration with ``mesh`` > 1 (None
+    otherwise): the first ``mesh`` cards, or that many CPU shards where
+    `device` is the CPU."""
+    n = mesh_size(cfg)
+    if n == 1:
+        return None
+    from ka9q_sdr_tpu_torch.parallel.mesh import make_channel_mesh
+
+    mesh = make_channel_mesh(n, cpu=torch.device(device).type == "cpu")
+    if mesh.size != n:
+        raise RuntimeError(f"the configuration's mesh needs {n} devices; "
+                           f"found {mesh.size}")
+    return mesh
+
+
 class System:
     """The bank of a configuration and the entry of a cell.
 
     `call(x)` runs one block (a host (L, 2) int16 array) through the
     entry and returns its outputs as {name: tensor}: per group g
-    ``g<g>.pcm``, ``g<g>.idx`` (compaction only) and the diag leaves."""
+    ``g<g>.pcm``, ``g<g>.idx`` (compaction only) and the diag leaves.
 
-    def __init__(self, cfg: dict, compact: bool, device):
+    With the configuration's ``mesh`` > 1 a ``ChannelBank`` is sharded
+    over the mesh as bankd's ``--mesh`` (``shard_fft`` as
+    ``--shard-fft``): its channels padded to a multiple of the mesh, the
+    compaction told the real count (``n_valid``), and the padding rows
+    dropped from every output before the comparison sees it.  `mesh`:
+    the configuration's mesh (``make_mesh``) where the caller has built
+    it already, built here otherwise."""
+
+    def __init__(self, cfg: dict, compact: bool, device, mesh=None):
         from ka9q_sdr_tpu_torch.models.bank import (ChannelBank, MultiBank,
                                                     make_bank_config)
 
@@ -53,24 +88,49 @@ class System:
         kw = dict(samprate=float(cfg["samprate"]), L=cfg["L"], M=cfg["M"],
                   enable_pl=bool(cfg.get("enable_pl", False)))
         self.max_active = cfg.get("max_active") if compact else None
+        if mesh is None:
+            mesh = make_mesh(cfg, device)
+        self.mesh = mesh
+        self.n_real = None          # the real rows where the mesh pads
         if cfg["kind"] == "ChannelBank":
             (mode, freqs), = self.groups
-            bc = make_bank_config(len(freqs), mode, **kw)
-            self.bank = ChannelBank(bc, freqs, device=device)
+            if mesh is None:
+                bc = make_bank_config(len(freqs), mode, **kw)
+                self.bank = ChannelBank(bc, freqs, device=device)
+            else:
+                from ka9q_sdr_tpu_torch.parallel.mesh import pad_channels
+
+                padded = pad_channels(freqs, mesh.size)
+                if len(padded) != len(freqs):
+                    self.n_real = len(freqs)
+                bc = make_bank_config(len(padded), mode, **kw)
+                self.bank = ChannelBank(
+                    bc, padded, mesh=mesh,
+                    shard_fft=bool(cfg.get("shard_fft", False)))
             self._fresh = self.bank.state
             if self.max_active:
                 self._entry = self._active
             else:
                 self._entry = self._pcm
         elif cfg["kind"] == "MultiBank":
+            if mesh is not None:
+                raise ValueError("no configuration runs a MultiBank on a "
+                                 "mesh yet")
             self.bank = MultiBank(self.groups, device=device, **kw)
             self._fresh = self.bank.states
             self._entry = self._multi
         else:
             raise ValueError(f"unknown bank kind {cfg['kind']!r}")
 
-    @staticmethod
-    def _pack(g: int, pcm, diag, idx=None) -> dict:
+    def _pack(self, g: int, pcm, diag, idx=None) -> dict:
+        n = self.n_real
+        if n is not None:
+            # the mesh's padding rows dropped (bankd's a[: n_real]); the
+            # compacted PCM has a row a slot, which n_valid keeps padding
+            # out of
+            diag = {k: v[:n] for k, v in diag.items() if v is not None}
+            if idx is None:
+                pcm = pcm[:n]
         out = {f"g{g}.pcm": pcm}
         if idx is not None:
             out[f"g{g}.idx"] = idx
@@ -83,7 +143,12 @@ class System:
         return self._pack(0, pcm, diag)
 
     def _active(self, x):
-        pcm, idx, diag = self.bank.process_active(x, self.max_active)
+        n = self.n_real
+        if n is None:
+            pcm, idx, diag = self.bank.process_active(x, self.max_active)
+        else:
+            pcm, idx, diag = self.bank.process_active(x, self.max_active,
+                                                      n_valid=n)
         return self._pack(0, pcm, diag, idx)
 
     def _multi(self, x):

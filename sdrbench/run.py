@@ -75,6 +75,8 @@ class Run:
     peak_reserved: int = 0
     blocks: list = field(default_factory=list)   # serve.Block
     dev_ms: list = field(default_factory=list)   # (before, after, copied)
+    peak_cards: list = field(default_factory=list)  # bytes a card
+    traced_blocks: int = 0                        # served under the profiler
     kernel: dict = field(default_factory=dict)   # name -> (ms, bytes)
     trace: dict | None = None                     # devtime.reduce_events
 
@@ -85,6 +87,16 @@ class Run:
     @property
     def L(self) -> int:
         return self.cfg["L"]
+
+
+def peak_reserved(cards, read=None) -> tuple:
+    """The fullest card's ``max_memory_reserved`` (what limits a card's
+    channels) and each card's, in the order of `cards`."""
+    import torch
+
+    read = read or torch.cuda.max_memory_reserved
+    each = [int(read(c)) for c in cards]
+    return max(each), each
 
 
 def run_cell(cfg: dict, traffic: dict, limits: dict, seed: int,
@@ -101,13 +113,18 @@ def run_cell(cfg: dict, traffic: dict, limits: dict, seed: int,
     groups = program.channel_freqs(cfg)
     plan = generator.draw(groups, fs, traffic["signals"], seed)
     blocks = generator.make_loop(plan, L, traffic["noise_rms"], seed, device)
+    mesh = program.make_mesh(cfg, device)
+    # a mesh's cards, the first (which holds the outputs) `device`
+    cards = list(mesh.devices) if mesh is not None else [device]
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(device)
+        for c in cards:
+            torch.cuda.synchronize(c)
+        torch.cuda.empty_cache()            # every card's
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
     compact = bool(traffic.get("compact"))
     make = system_factory or program.System
-    system = make(cfg, compact, device)
+    system = make(cfg, compact, device, mesh=mesh)
     check = compare.Check(groups, plan, cfg, traffic, seed)
     loop = traffic["loop"]
     for _ in range(2):                      # capture, then one replay
@@ -118,7 +135,8 @@ def run_cell(cfg: dict, traffic: dict, limits: dict, seed: int,
     del out
     system.reset()
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        for c in cards:
+            torch.cuda.synchronize(c)
     period = L / fs                         # the wire rate
     rec = Run(cfg, _device_name(device), seconds, loop, period)
     rec.setup_s = time.monotonic() - _T0
@@ -127,23 +145,33 @@ def run_cell(cfg: dict, traffic: dict, limits: dict, seed: int,
     rec.blocks = win.blocks
     rec.dev_ms = win.device_ms()
     if device.type == "cuda":
-        rec.peak_reserved = torch.cuda.max_memory_reserved(device)
+        rec.peak_reserved, rec.peak_cards = peak_reserved(cards)
     found = forbidden_modules()
     traced = None
     if trace:
         # the profiler over blocks served after the window, so it slows
         # no block the metrics read; they are compared as well
-        with devtime.Trace(device) as tr:
-            serve.run_window(system.call, blocks, egress, device, loop=loop,
-                             seconds=seconds, period=period, keep=check.keep,
-                             count=TRACE_BLOCKS[loop],
-                             first=len(win.blocks))
+        with devtime.Trace(device, cards) as tr:
+            tw = serve.run_window(system.call, blocks, egress, device,
+                                  loop=loop, seconds=seconds, period=period,
+                                  keep=check.keep, count=TRACE_BLOCKS[loop],
+                                  first=len(win.blocks))
+        rec.traced_blocks = len(tw.blocks)
         traced = rec.trace = tr.reduce()
+        if traced is not None and len(traced["card_busy_s"]) > 1:
+            print("# traced device ms a block, card by card: " + " / ".join(
+                f"{1e3 * v / rec.traced_blocks:.4f}"
+                for v in traced["card_busy_s"].values()),
+                file=sys.stderr, flush=True)
         rec.kernel = _kernels(cfg, device, seed, kernel_reps)
-    del system, egress, win
+    del system, egress, win, mesh
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    if len(rec.peak_cards) > 1:
+        print("# peak reserved GiB a card: " + " / ".join(
+            f"{b / 2**30:.4f}" for b in rec.peak_cards), file=sys.stderr,
+            flush=True)
     t_ref = time.monotonic()
     numbers = check.compare(blocks, device)
     print(f"# reference over {max(check.kept) + 1 if check.kept else 0} "

@@ -26,6 +26,7 @@ PCM_LSB, PCM_RMS_DBFS, RMS_DB, RMS_FLOOR_DBFS = 8, -85.0, 0.1, -90.0
 @pytest.mark.parametrize("cfg_name,traffic,workload", [
     ("fm_pl_4096_20ms", "sat", "fm4096-sat"),
     ("mixed6144_20ms", "sat", "mixed6144-sat"),
+    ("fm_pl_4094_mesh4_20ms", "live", "fm4094-mesh4-live"),
 ])
 def test_bfloat16_control_fails_the_limits(cfg_name, traffic, workload):
     nums = control.control_numbers(tiny.config(cfg_name),
